@@ -3,7 +3,8 @@
 Counterpart of ``ab_opt_tpu/diffusion/igso3.py``: the same host-side numpy
 table build (truncated character series, 8192 bins, 1024 terms; Gaussian
 approximation for noise levels <= 0.1), and inverse-CDF sampling for one
-noise level shared by the whole batch (the sampler's scalar-t path).
+noise level shared by the whole batch (the sampler's scalar-t path) or one
+level per complex or residue (training's forward noising).
 """
 from __future__ import annotations
 
@@ -59,27 +60,43 @@ def build_igso3_tables(stddevs, std_threshold: float = 0.1,
     )
 
 
-def sample_igso3_angle(tables: IGSO3Tables, t: int, shape, *, u=None,
+def sample_igso3_angle(tables: IGSO3Tables, t, shape, *, u=None,
                        frac=None, gauss=None, generator=None, device=None):
-    """Angles in [0, pi) for one noise level ``t``, one per element of
-    ``shape``. ``u``/``frac`` (uniform) and ``gauss`` (standard normal)
-    are the draws, each of ``shape``; missing ones come from ``generator``.
+    """Angles in [0, pi), one per element of ``shape``. ``t`` is the noise
+    level: a Python int shared by all elements (the sampler's path), or a
+    tensor of levels whose shape is a leading part of ``shape`` ((N,) or
+    (N, L): one level per complex or per residue, the training path).
+    ``u``/``frac`` (uniform) and ``gauss`` (standard normal) are the draws,
+    each of ``shape``; missing ones come from ``generator``.
     """
     shape = tuple(shape)
     draw = lambda fn: fn(shape, generator=generator, device=device)
     u = draw(torch.rand) if u is None else u
     frac = draw(torch.rand) if frac is None else frac
     gauss = draw(torch.randn) if gauss is None else gauss
-    if tables.approx_flag[t]:
-        std = float(tables.stddevs[t])
-        return torch.fmod((gauss * std + std * 2.0).abs(), math.pi)
-    cdf_t = tables.cdf[t].to(u.device)
-    # Number of CDF entries below u (the CDF is non-decreasing).
-    bin_idx = torch.searchsorted(cdf_t, u.contiguous())
-    return (bin_idx.to(torch.float32) + frac) * tables.dx
+    if not torch.is_tensor(t):
+        if tables.approx_flag[t]:
+            std = float(tables.stddevs[t])
+            return torch.fmod((gauss * std + std * 2.0).abs(), math.pi)
+        cdf_t = tables.cdf[t].to(u.device)
+        # Number of CDF entries below u (the CDF is non-decreasing).
+        bin_idx = torch.searchsorted(cdf_t, u.contiguous())
+        return (bin_idx.to(torch.float32) + frac) * tables.dx
+    # One CDF row per level; each row is searched for the draws it owns.
+    t = t.to(u.device).long()
+    rows = tables.cdf.to(u.device)[t]                      # t.shape + (B-1,)
+    bin_idx = torch.searchsorted(
+        rows, u.reshape(t.shape + (-1,)).contiguous()).reshape(shape)
+    bin_idx = bin_idx.clamp_(max=rows.shape[-1] - 1)
+    hist = (bin_idx.to(torch.float32) + frac) * tables.dx
+    per_elem = lambda a: torch.as_tensor(a, device=u.device)[t].reshape(
+        t.shape + (1,) * (len(shape) - t.dim()))
+    std = per_elem(tables.stddevs)
+    approx = torch.fmod((gauss * std + std * 2.0).abs(), math.pi)
+    return torch.where(per_elem(tables.approx_flag), approx, hist)
 
 
-def sample_igso3_vector(tables: IGSO3Tables, t: int, shape, *, axis=None,
+def sample_igso3_vector(tables: IGSO3Tables, t, shape, *, axis=None,
                         u=None, frac=None, gauss=None, generator=None,
                         device=None):
     """Random axis, IGSO3-distributed angle -> so3 vectors, shape + (3,).

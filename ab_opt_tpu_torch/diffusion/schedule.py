@@ -3,13 +3,15 @@
 
 Tables are built host-side in numpy float32, exactly as the JAX package
 builds them, and stay numpy: the sampler indexes them with a Python int t,
-so every coefficient is a float32 scalar computed on the host.
+so every coefficient is a float32 scalar computed on the host; training
+indexes them with a tensor t through :func:`broadcast_coef`.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class VarianceSchedule(NamedTuple):
@@ -63,3 +65,14 @@ class VarianceSchedule(NamedTuple):
             posterior_mean_coef1=f32(posterior_mean_coef1),
             posterior_mean_coef2=f32(posterior_mean_coef2),
         )
+
+
+def broadcast_coef(table: np.ndarray, t: torch.Tensor,
+                   ref_ndim: int) -> torch.Tensor:
+    """``table[t]`` for a tensor ``t`` of shape (N,) or (N, L), as a float32
+    tensor on ``t``'s device with axes padded on the right to broadcast
+    against a tensor of ``ref_ndim`` dims."""
+    c = torch.as_tensor(table, device=t.device)[t.long()]
+    while c.dim() < ref_ndim:
+        c = c[..., None]
+    return c

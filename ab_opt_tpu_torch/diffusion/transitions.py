@@ -1,11 +1,14 @@
-"""R^3 / SO(3) / categorical reverse-diffusion transitions (counterpart of
-``ab_opt_tpu/diffusion/transitions.py``, the sampling half).
+"""R^3 / SO(3) / categorical diffusion transitions (counterpart of
+``ab_opt_tpu/diffusion/transitions.py``): the reverse steps the sampler
+runs and the forward noising that training runs.
 
-``t`` is a Python int shared by the whole batch (the sampler's scalar-t
-path): every schedule coefficient is a float32 scalar computed on the host.
-Each ``denoise`` takes its noise draws as optional tensors (JAX's draws can
-be fed in); missing draws come from ``generator``. ``mask_generate``
-selects the residues being generated; context residues pass through.
+``t`` is either a Python int shared by the whole batch (the sampler's
+scalar-t path: every schedule coefficient is a float32 scalar computed on
+the host) or a tensor of shape (N,) or (N, L) (training: coefficients are
+gathered per complex or residue and broadcast from the left). Every noise
+draw is an optional tensor argument (JAX's draws can be fed in); missing
+draws come from ``generator``. ``mask_generate`` selects the residues being
+generated; context residues pass through.
 """
 from __future__ import annotations
 
@@ -13,9 +16,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..geometry.so3 import quaternion_mul, quaternion_to_so3vec, so3vec_to_quaternion
+from ..geometry.so3 import (quaternion_mul, quaternion_to_so3vec,
+                            rotation_to_so3vec, so3vec_to_quaternion,
+                            so3vec_to_rotation)
 from .igso3 import build_igso3_tables, sample_igso3_vector
-from .schedule import VarianceSchedule
+from .schedule import VarianceSchedule, broadcast_coef
 
 
 def _mask_mix(mask, new, old):
@@ -35,6 +40,16 @@ def clamped_one_hot(x, num_classes: int):
 class PositionTransition:
     def __init__(self, num_steps: int):
         self.sched = VarianceSchedule.cosine(num_steps)
+
+    def add_noise(self, p_0, mask_generate, t, *, eps=None, generator=None):
+        """q(p_t | p_0), closed form, for a tensor ``t``: returns (p_noisy,
+        eps); ``eps`` is the standard-normal draw (p_0's shape)."""
+        ab = broadcast_coef(self.sched.alpha_bars, t, p_0.dim())
+        if eps is None:
+            eps = torch.randn(p_0.shape, generator=generator,
+                              device=p_0.device)
+        p_noisy = torch.sqrt(ab) * p_0 + torch.sqrt(1.0 - ab) * eps
+        return _mask_mix(mask_generate, p_noisy, p_0), eps
 
     def denoise(self, p_t, eps_p, mask_generate, t: int, *, z=None,
                 generator=None):
@@ -61,17 +76,50 @@ class PositionTransition:
         crm1 = float(self.sched.sqrt_recipm1_alpha_bars[t])
         return _mask_mix(mask_generate, (cr * p_t - p_0) / crm1, p_t)
 
+    def pred_start_from_noise(self, p_t, eps_p, mask_generate, t):
+        """p_0 = p_t / sqrt(abar) - sqrt(1/abar - 1) eps, for a tensor t."""
+        cr = broadcast_coef(self.sched.sqrt_recip_alpha_bars, t, p_t.dim())
+        crm1 = broadcast_coef(self.sched.sqrt_recipm1_alpha_bars, t, p_t.dim())
+        return _mask_mix(mask_generate, cr * p_t - crm1 * eps_p, p_t)
+
 
 class RotationTransition:
     def __init__(self, num_steps: int):
         self.sched = VarianceSchedule.cosine(num_steps)
-        # Only the reverse-step tables (noise levels sigma_t) are needed to
-        # sample; the forward-noising tables come with add_noise.
+        # Reverse-step tables (noise levels sigma_t). The forward-noising
+        # tables (levels sqrt(1 - alpha_bar)) are built at the first
+        # add_noise: sampling never needs them.
         self.igso3_inv = build_igso3_tables(self.sched.sigmas)
+        self._igso3_fwd = None
+
+    @property
+    def igso3_fwd(self):
+        if self._igso3_fwd is None:
+            levels = np.sqrt(1.0 - self.sched.alpha_bars)
+            self._igso3_fwd = build_igso3_tables(levels).to(
+                self.igso3_inv.cdf.device)
+        return self._igso3_fwd
 
     def to(self, device) -> 'RotationTransition':
         self.igso3_inv = self.igso3_inv.to(device)
+        if self._igso3_fwd is not None:
+            self._igso3_fwd = self._igso3_fwd.to(device)
         return self
+
+    def add_noise(self, v_0, mask_generate, t, *, axis=None, u=None,
+                  frac=None, gauss=None, generator=None):
+        """Forward noising for a tensor ``t``: an IGSO3(sqrt(1 - alpha_bar))
+        rotation composed with the scaled true rotation. Returns (v_noisy,
+        e_scaled); draws as :func:`~.igso3.sample_igso3_vector`, each of
+        v_0's shape but the last axis."""
+        ab = broadcast_coef(self.sched.alpha_bars, t, v_0.dim())
+        e_scaled = sample_igso3_vector(
+            self.igso3_fwd, t, v_0.shape[:-1], axis=axis, u=u, frac=frac,
+            gauss=gauss, generator=generator, device=v_0.device)
+        R_noisy = (so3vec_to_rotation(e_scaled)
+                   @ so3vec_to_rotation(torch.sqrt(ab) * v_0))
+        return (_mask_mix(mask_generate, rotation_to_so3vec(R_noisy), v_0),
+                e_scaled)
 
     def denoise(self, v_t, v_next, mask_generate, t: int, *, axis=None,
                 u=None, frac=None, gauss=None, generator=None):
@@ -94,12 +142,41 @@ class SequenceTransition:
         self.sched = VarianceSchedule.cosine(num_steps)
         self.num_classes = num_classes
 
-    def posterior(self, c_t, c_0, t: int):
-        """theta(x_{t-1} | x_t, x_0); alpha_bar for both factors, as the
+    def _sample(self, c, gumbel=None, generator=None):
+        """Categories from (possibly unnormalized) probabilities ``c``;
+        ``gumbel`` is the standard Gumbel draw behind the sample (c's
+        shape)."""
+        if gumbel is None:
+            tiny = torch.finfo(torch.float32).tiny
+            u = torch.rand(c.shape, generator=generator,
+                           device=c.device) * (1.0 - tiny) + tiny
+            gumbel = -torch.log(-torch.log(u))
+        return torch.argmax(torch.log(c + 1e-8) + gumbel, dim=-1)
+
+    def add_noise(self, x_0, mask_generate, t, *, gumbel=None,
+                  generator=None):
+        """Uniform-noise forward kernel for a tensor ``t``: returns (c_t
+        probs, x_t codes)."""
+        K = self.num_classes
+        c_0 = clamped_one_hot(x_0, K)
+        ab = broadcast_coef(self.sched.alpha_bars, t, c_0.dim())
+        c_t = _mask_mix(mask_generate, ab * c_0 + (1.0 - ab) / K, c_0)
+        return c_t, self._sample(c_t, gumbel, generator)
+
+    def posterior(self, x_t, x_0, t):
+        """theta(x_{t-1} | x_t, x_0); ``x_t``/``x_0`` are codes (N, L) or
+        probabilities (N, L, K); alpha_bar for both factors, as the
         reference does."""
-        a = self.sched.alpha_bars[t]
-        off = float((np.float32(1.0) - a) / self.num_classes)
-        a = float(a)
+        K = self.num_classes
+        c_t, c_0 = (x if x.dim() == 3 else clamped_one_hot(x, K)
+                    for x in (x_t, x_0))
+        if torch.is_tensor(t):
+            a = broadcast_coef(self.sched.alpha_bars, t, c_t.dim())
+            off = (1.0 - a) / K
+        else:
+            a = self.sched.alpha_bars[t]
+            off = float((np.float32(1.0) - a) / K)
+            a = float(a)
         theta = (a * c_t + off) * (a * c_0 + off)
         return theta / (theta.sum(-1, keepdim=True) + 1e-8)
 
@@ -109,9 +186,4 @@ class SequenceTransition:
         standard Gumbel draw behind the categorical sample, (..., K)."""
         c_t = clamped_one_hot(x_t, self.num_classes)
         post = _mask_mix(mask_generate, self.posterior(c_t, c_0_pred, t), c_t)
-        if gumbel is None:
-            tiny = torch.finfo(torch.float32).tiny
-            u = torch.rand(post.shape, generator=generator,
-                           device=post.device) * (1.0 - tiny) + tiny
-            gumbel = -torch.log(-torch.log(u))
-        return post, torch.argmax(torch.log(post + 1e-8) + gumbel, dim=-1)
+        return post, self._sample(post, gumbel, generator)

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ab_opt_tpu.constants import backbone_atom_coordinates, bb_oxygen_coordinate
+from ..constants import backbone_atom_coordinates, bb_oxygen_coordinate
 from .dihedrals import get_backbone_dihedral_angles
 from .frames import compose_rotation_and_translation, local_to_global
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ab_opt_tpu.constants import BBHeavyAtom
+from ..constants import BBHeavyAtom
 
 
 def dihedral_from_four_points(p0, p1, p2, p3):

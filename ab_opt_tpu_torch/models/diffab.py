@@ -1,10 +1,15 @@
-"""The DiffAb sequence-structure co-design model: reverse-diffusion sampling
-with trajectory fan-out.
+"""The DiffAb sequence-structure co-design model: the training losses and
+reverse-diffusion sampling with trajectory fan-out.
 
-Counterpart of ``ab_opt_tpu/models/diffab.py`` (sampling, stride 1).
-:class:`DiffAbNet` holds the parameters under the reference's state-dict
-names (``residue_embed.*``, ``pair_embed.*``, ``diffusion.eps_net.*``);
-:class:`DiffAb` adds the transitions and :meth:`DiffAb.sample`.
+Counterpart of ``ab_opt_tpu/models/diffab.py`` (``loss``; ``sample`` at
+stride 1). :class:`DiffAbNet` holds the parameters under the reference's
+state-dict names (``residue_embed.*``, ``pair_embed.*``,
+``diffusion.eps_net.*``); :class:`DiffAb` adds the transitions,
+:meth:`DiffAb.loss` and :meth:`DiffAb.sample`.
+
+The loss runs the eager GAEncoder, whose attention goes through the K2/K3
+kernels under autograd (:mod:`ab_opt_tpu_torch.ops.ipa_attention`), and
+the per-head output modules.
 
 The reverse loop is a Python loop over t (a Python int inside the step).
 What stays fixed across steps is built once per ``sample`` call: the
@@ -16,18 +21,20 @@ CUDA tensors, its plain version for CPU tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from ab_opt_tpu.constants import BBHeavyAtom
+from ..constants import BBHeavyAtom
 from ..diffusion import PositionTransition, RotationTransition, SequenceTransition
-from ..geometry import construct_3d_basis, random_uniform_so3, rotation_to_so3vec
+from ..geometry import (construct_3d_basis, random_uniform_so3,
+                        rotation_to_so3vec, so3vec_to_rotation)
 from ..nn import EpsilonNet, PairEmbedding, ResidueEmbedding
 from ..nn.epsilon_net import precompute_head_weights
 from ..nn.ipa import precompute_encoder_pair_biases
 from ..ops.gablock import build_encoder_weights, gablock_layer
+from . import losses as Ls
 from .losses import compute_prmsd, sequence_perplexity
 
 
@@ -42,13 +49,34 @@ class DiffAbConfig:
     num_bins: int = 40
     dist_min: float = 0.5
     dist_max: float = 19.5
+    train_structure: bool = True
+    train_sequence: bool = True
     position_mean: Tuple[float, ...] = (0.0, 0.0, 0.0)
     position_scale: Tuple[float, ...] = (10.0,)
+    mask_ratio_min: float = 0.0        # random partial-CDR masking (0 = off)
+    mask_ratio_max: float = 0.0
     dtype: str = 'float32'             # compute dtype for dense layers
 
     @property
     def compute_dtype(self):
         return torch.bfloat16 if self.dtype == 'bfloat16' else torch.float32
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> 'DiffAbConfig':
+        """Build from a reference-style config dict (the model section);
+        keys the port has no field for are dropped."""
+        d = dict(d)
+        d.pop('type', None)
+        diffusion = d.pop('diffusion', {})
+        kw = {'num_atoms': 15 if d.pop('resolution', 'full') == 'full' else 5}
+        fields = {f.name for f in dataclasses.fields(cls)}
+        for src in (d, diffusion):
+            for k, v in src.items():
+                if k == 'eps_net_opt':
+                    kw['num_layers'] = v.get('num_layers', 6)
+                elif k in fields:
+                    kw[k] = tuple(v) if isinstance(v, list) else v
+        return cls(**kw)
 
 
 class _Diffusion(nn.Module):
@@ -101,7 +129,8 @@ class DiffAbNet(nn.Module):
 
 
 class DiffAb(DiffAbNet):
-    """Parameters + transitions + reverse-diffusion sampling."""
+    """Parameters + transitions + training losses + reverse-diffusion
+    sampling."""
 
     def __init__(self, cfg: DiffAbConfig):
         super().__init__(cfg)
@@ -121,6 +150,99 @@ class DiffAb(DiffAbNet):
     def unnormalize_position(self, p):
         mean, scale = self._position_affine(p)
         return p * scale + mean
+
+    def loss(self, batch, generator: Optional[torch.Generator] = None,
+             t: Optional[torch.Tensor] = None, draws: Optional[Dict] = None,
+             attention=None) -> Dict[str, torch.Tensor]:
+        """Single-step diffusion training losses: {'prmsd', 'dist' (with
+        ``obj='pred_x0'``), 'rot', 'pos', 'seq'}, each a scalar.
+
+        ``t`` (N,) timesteps in [0, num_steps) (else drawn). ``draws``
+        optionally supplies every noise draw (else ``generator`` draws
+        them): 'rot_axis' (N, L, 3), 'rot_u', 'rot_frac', 'rot_gauss'
+        (N, L), 'pos' (N, L, 3), 'seq_gumbel' (N, L, 20), and 'mask_keep'
+        (N, L) bool when ``mask_ratio_min`` > 0. ``attention`` replaces the
+        encoder's attention function (the plain version, for a side-by-side
+        check on the card).
+        """
+        cfg = self.cfg
+        d = draws or {}
+        structure, sequence = cfg.train_structure, cfg.train_sequence
+        mask_generate, mask_res = batch['generate_flag'], batch['mask']
+        dev = mask_res.device
+        if cfg.mask_ratio_min > 0:
+            # Random partial-CDR masking: only a Bernoulli subset of the CDR
+            # is generated this step.
+            keep = d.get('mask_keep')
+            if keep is None:
+                ratio = cfg.mask_ratio_min + (
+                    cfg.mask_ratio_max - cfg.mask_ratio_min) * torch.rand(
+                        (), generator=generator, device=dev)
+                keep = torch.rand(mask_generate.shape, generator=generator,
+                                  device=dev) < ratio
+            mask_generate = mask_generate & keep
+            batch = dict(batch, generate_flag=mask_generate)
+
+        res_feat, pair_feat, R_0, p_0 = self.encode(batch, structure, sequence)
+        v_0 = rotation_to_so3vec(R_0)
+        s_0 = batch['aa'].long()
+        if t is None:
+            t = torch.randint(0, cfg.num_steps, (s_0.shape[0],),
+                              generator=generator, device=dev)
+        t = t.to(dev).long()
+        p_0 = self.normalize_position(p_0)
+        self.trans_rot.to(dev)
+
+        if structure:
+            v_noisy, _ = self.trans_rot.add_noise(
+                v_0, mask_generate, t, axis=d.get('rot_axis'),
+                u=d.get('rot_u'), frac=d.get('rot_frac'),
+                gauss=d.get('rot_gauss'), generator=generator)
+            p_noisy, _ = self.trans_pos.add_noise(
+                p_0, mask_generate, t, eps=d.get('pos'), generator=generator)
+        else:
+            v_noisy, p_noisy = v_0, p_0
+        s_noisy = s_0
+        if sequence:
+            _, s_noisy = self.trans_seq.add_noise(
+                s_0, mask_generate, t, gumbel=d.get('seq_gumbel'),
+                generator=generator)
+
+        beta = torch.as_tensor(self.trans_pos.sched.betas, device=dev)[t]
+        _, R_pred, p_pred, c_denoised, prmsd_logits = self.eps_net(
+            v_noisy, p_noisy, s_noisy, res_feat, pair_feat, beta,
+            mask_generate, mask_res, attention=attention)
+
+        if cfg.obj == 'pred_x0':
+            p_true, pred_p0 = p_0, p_pred
+        else:
+            # As the JAX package (and the reference's dpm_full.py:189):
+            # the target is p_noisy and p_0 is passed as the state.
+            p_true = p_noisy
+            pred_p0 = self.trans_pos.pred_start_from_noise(
+                p_0, p_pred, mask_generate, t)
+
+        losses = {}
+        rmsd = Ls.masked_rmsd(self.unnormalize_position(pred_p0),
+                              self.unnormalize_position(p_0), mask_generate)
+        # Per-complex mask "has any generated residue" (the semantic mask of
+        # the JAX package, not the reference's positional one).
+        losses['prmsd'] = Ls.prmsd_loss(
+            prmsd_logits, rmsd.detach(), mask_generate.any(-1),
+            cfg.dist_min, cfg.dist_max, cfg.num_bins)
+        if cfg.obj == 'pred_x0':
+            losses['dist'] = Ls.pairwise_distance_loss(
+                p_pred, p_true, mask_generate, mask_res)
+        losses['rot'] = Ls.masked_mean(Ls.rotation_matrix_cosine_loss(
+            R_pred, so3vec_to_rotation(v_0)), mask_generate)
+        losses['pos'] = Ls.masked_mean(((p_pred - p_true) ** 2).sum(-1),
+                                       mask_generate)
+        post_true = self.trans_seq.posterior(s_noisy, s_0, t)
+        log_post_pred = torch.log(
+            self.trans_seq.posterior(s_noisy, c_denoised, t) + 1e-8)
+        losses['seq'] = Ls.sequence_kl_loss(post_true, log_post_pred,
+                                            mask_generate)
+        return losses
 
     @torch.no_grad()
     def sample(self, batch, generator: Optional[torch.Generator] = None,

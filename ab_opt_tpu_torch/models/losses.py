@@ -1,8 +1,71 @@
-"""Per-step sampling scores (counterpart of the sampling half of
+"""Training losses and per-step sampling scores (counterpart of
 ``ab_opt_tpu/models/losses.py``)."""
 from __future__ import annotations
 
 import torch
+
+from ..nn.layers import distance_to_bins_onehot
+
+
+def masked_mean(x, mask, eps: float = 1e-8):
+    """Mean of ``x`` over the elements where ``mask`` (same shape) is set."""
+    mask = mask.to(x.dtype)
+    return (x * mask).sum() / (mask.sum() + eps)
+
+
+def rotation_matrix_cosine_loss(R_pred, R_true):
+    """Sum over the three basis columns of (1 - cosine similarity):
+    (..., 3, 3) -> (...,)."""
+    dot = (R_pred * R_true).sum(-2)
+    norm = (torch.linalg.vector_norm(R_pred, dim=-2)
+            * torch.linalg.vector_norm(R_true, dim=-2))
+    return (1.0 - dot / torch.clamp(norm, min=1e-8)).sum(-1)
+
+
+def smooth_l1(x, y, beta: float = 1.0):
+    d = (x - y).abs()
+    return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
+
+
+def pairwise_distance_loss(p_pred, p_true, mask_generate, mask_res):
+    """Masked SmoothL1 between pairwise-distance maps; pair (i, j) counts
+    when residue i is generated and both are valid."""
+    def cdist(p):
+        sq = (p * p).sum(-1)
+        cross = torch.einsum('nix,njx->nij', p, p)
+        return torch.sqrt(torch.clamp(sq[:, :, None] + sq[:, None, :]
+                                      - 2 * cross, min=1e-12))
+
+    mask_map = mask_res[:, :, None] & mask_res[:, None, :]
+    mask_pair = mask_generate[:, :, None] & mask_map
+    return masked_mean(smooth_l1(cdist(p_pred), cdist(p_true)), mask_pair)
+
+
+def sequence_kl_loss(post_true, log_post_pred, mask_generate):
+    """KL(post_true || post_pred) summed over classes, masked mean over the
+    generated residues, with 0 log 0 = 0."""
+    xlogx = torch.where(post_true > 0,
+                        post_true * torch.log(torch.clamp(post_true, min=1e-30)),
+                        torch.zeros_like(post_true))
+    kl = (xlogx - post_true * log_post_pred).sum(-1)
+    return masked_mean(kl, mask_generate)
+
+
+def masked_rmsd(pred, target, mask):
+    """Per-complex RMSD over the masked residues: (N, L, 3) -> (N,)."""
+    m = mask.to(pred.dtype)[..., None]
+    sq = ((pred * m - target * m) ** 2).sum(-1)
+    n = torch.clamp(mask.sum(-1).to(pred.dtype), min=1.0)
+    return torch.sqrt(sq.sum(-1) / n)
+
+
+def prmsd_loss(prmsd_logits, rmsd, mask, dist_min: float, dist_max: float,
+               num_bins: int):
+    """Binned cross-entropy of the confidence head: logits (N, bins), rmsd
+    (N,), mask (N,)."""
+    target = distance_to_bins_onehot(rmsd, dist_min, dist_max, num_bins)
+    errors = -(target * torch.log_softmax(prmsd_logits, dim=-1)).sum(-1)
+    return masked_mean(errors, mask, eps=1e-10)
 
 
 def compute_prmsd(prmsd_logits, dist_min: float, dist_max: float):

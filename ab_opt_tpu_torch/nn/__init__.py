@@ -4,6 +4,6 @@ from .epsilon_net import EpsilonNet, apply_fused_heads, precompute_head_weights
 from .ipa import (GABlock, GAEncoder, precompute_encoder_pair_biases,
                   precompute_pair_bias)
 from .layers import (AngularEncoding, Embedding, LayerNorm, Linear,
-                     PerResiduePredictor, mlp)
+                     PerResiduePredictor, distance_to_bins_onehot, mlp)
 
 __all__ = [k for k in dir() if not k.startswith('_')]

@@ -6,7 +6,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ab_opt_tpu.constants import AA_UNK, MAX_AA_TYPES, BBHeavyAtom
+from ..constants import AA_UNK, MAX_AA_TYPES, BBHeavyAtom
 from ..geometry import (angstrom_to_nm, construct_3d_basis,
                         get_backbone_dihedral_angles, global_to_local,
                         pairwise_dihedrals)

@@ -73,12 +73,15 @@ class EpsilonNet(nn.Module):
         self.prmsd_predictor = PerResiduePredictor(F + 3, num_bins, F, dtype)
 
     def forward(self, v_t, p_t, s_t, res_feat, pair_feat, beta, mask_generate,
-                mask_res, reps: int = 1, encoder_fn=None, head_weights=None):
+                mask_res, reps: int = 1, encoder_fn=None, head_weights=None,
+                attention=None):
         """v_t (N, L, 3) so3 vectors, p_t (N, L, 3) normalized positions, s_t
         (N, L) codes, res_feat (N, L, F), pair_feat (N // reps, L, L, C),
         beta (N,). ``encoder_fn(R9, t, x, mask) -> x`` replaces the eager
         GAEncoder (the sampler passes the GABlock kernel path);
-        ``head_weights`` selects the batched heads."""
+        ``head_weights`` selects the batched heads (built detached: sampling
+        only; training uses the per-head modules); ``attention`` is passed
+        to the eager GAEncoder's blocks."""
         N, L = mask_res.shape
         F = self.res_feat_dim
         R9 = so3vec_to_rotation_planar(v_t)                   # (N, L, 9)
@@ -90,7 +93,7 @@ class EpsilonNet(nn.Module):
             res_feat = encoder_fn(R9, p_t, res_feat, mask_res)
         else:
             res_feat = self.encoder(R9, p_t, res_feat, pair_feat, mask_res,
-                                    reps=reps)
+                                    reps=reps, attention=attention)
 
         t_embed = torch.stack([beta, torch.sin(beta), torch.cos(beta)], -1)
         in_feat = torch.cat([res_feat.float(),

@@ -1,11 +1,16 @@
 """Frame-based invariant point attention encoder (GABlock / GAEncoder).
 
-Counterpart of ``ab_opt_tpu/nn/ipa.py`` (einsum semantics, replica-shared
-pair tensor) with the reference's module names and its interleaved
-(head, point, xyz) point layout, so reference state dicts load as they are.
-The sampler runs the encoder through the GABlock kernel
-(:mod:`ab_opt_tpu_torch.ops.gablock`); this eager module is the module
-math the kernel's plain version is held against.
+Counterpart of ``ab_opt_tpu/nn/ipa.py`` with the reference's module names
+and its interleaved (head, point, xyz) point layout, so reference state
+dicts load as they are. The module's attention is the JAX package's fused
+path (``GABlock(use_pallas=True)`` -> ``ops/ipa_pallas.py::fused_ipa_fast``):
+the augmented 64-wide per-head operands qa/ka/vvp, the attention through
+:func:`ab_opt_tpu_torch.ops.ipa_attention.ipa_attention` (the K2/K3 kernels
+for CUDA tensors, their plain versions for CPU tensors, differentiable),
+the pair aggregation from the exported alphas, and the row mask on the
+attention outputs. The whole block is differentiable: this is the training
+path. The sampler runs the encoder through the fused GABlock kernel
+(:mod:`ab_opt_tpu_torch.ops.gablock`) instead.
 """
 from __future__ import annotations
 
@@ -16,20 +21,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..geometry import normalize_vector
+from ..ops.ipa_attention import SLOT, ipa_attention, p2n_aggregate
 from .layers import LayerNorm, Linear, mlp
 
 _INV_SQRT3 = math.sqrt(1.0 / 3.0)
 _NEG_BIG = 1e5
-
-
-def _masked_softmax(logits, mask, dim):
-    """Softmax over ``dim`` with masked pairs shifted by -1e5; rows whose
-    own residue is masked give all-zero weights. logits (N, L, L, H)."""
-    mask_row = mask[:, :, None, None]
-    mask_pair = mask_row & mask[:, None, :, None]
-    logits = torch.where(mask_pair, logits, logits - _NEG_BIG)
-    alpha = torch.softmax(logits, dim=dim)
-    return torch.where(mask_row, alpha, torch.zeros_like(alpha))
 
 
 class GABlock(nn.Module):
@@ -65,43 +61,69 @@ class GABlock(nn.Module):
         gamma = F.softplus(self.spatial_coef.float()).reshape(-1)
         return -gamma * math.sqrt(2.0 / (9.0 * P)) / 2.0
 
-    def forward(self, R, t, x, z, mask, reps: int = 1):
+    def attention_operands(self, R, t, x):
+        """qa, ka, vvp (N, L, H*64) in the compute dtype, the per-head slot
+        layout of the JAX fused path:
+        qa = [q/sqrt(3 QK) | -2c qp | c |qp|^2 | c | 0],
+        ka = [k | kp | 1 | |kp|^2 | 0], vvp = [v | vp | 0], with the points
+        in the global frame, planar per head ([x (P) | y (P) | z (P)]) and
+        c the spatial coefficient over sqrt(3), so qa . ka is the node plus
+        spatial logit, pre-scaled by 1/sqrt(3). Rotations in float32."""
+        N, L = x.shape[:2]
+        H, QK, V, P, PV = self.dims
+        f32 = torch.float32
+        R, t = R.reshape(N, L, 3, 3).to(f32), t.to(f32)
+
+        def points(lin, n):       # (N, L, H, 3, n) global, planar per head
+            p = lin(x).to(f32).reshape(N, L, H * n, 3)
+            g = torch.einsum('nlcd,nlkd->nlkc', R, p) + t[:, :, None, :]
+            return g.reshape(N, L, H, n, 3).transpose(-1, -2)
+
+        qg, kg = points(self.proj_query_point, P), points(self.proj_key_point, P)
+        vg = points(self.proj_value_point, PV)
+        coef = self.spatial_coefficient() * _INV_SQRT3        # (H,) f32
+        sq_q, sq_k = qg.square().sum((-1, -2)), kg.square().sum((-1, -2))
+        one = torch.ones_like(sq_q)
+        heads = lambda lin, n: lin(x).to(f32).reshape(N, L, H, n)
+        flat = lambda g: g.reshape(N, L, H, -1)
+
+        def slots(parts):
+            a = torch.cat(parts, -1)
+            a = F.pad(a, (0, SLOT - a.shape[-1]))
+            return a.to(self.dtype).reshape(N, L, H * SLOT).contiguous()
+
+        qa = slots([heads(self.proj_query, QK) / math.sqrt(3.0 * QK),
+                    (-2.0 * coef)[:, None] * flat(qg),
+                    (coef * sq_q)[..., None], (coef * one)[..., None]])
+        ka = slots([heads(self.proj_key, QK), flat(kg), one[..., None],
+                    sq_k[..., None]])
+        vvp = slots([heads(self.proj_value, V), flat(vg)])
+        return qa, ka, vvp
+
+    def forward(self, R, t, x, z, mask, reps: int = 1, attention=None):
         """R (N, L, 3, 3) or planar (N, L, 9); t (N, L, 3); x (N, L, F);
-        z (N // reps, L, L, Cz) per complex; mask (N, L) bool."""
+        z (N // reps, L, L, Cz) per complex; mask (N, L) bool.
+        ``attention(qa, ka, vvp, bias, reps) -> (out, alphas)`` defaults to
+        :func:`~ab_opt_tpu_torch.ops.ipa_attention.ipa_attention`."""
         N, L = x.shape[:2]
         H, QK, V, P, PV = self.dims
         dt = self.dtype
-        R = R.reshape(N, L, 3, 3).to(dt)
-        t = t.to(dt)
         mask = mask.bool()
-        to_global = lambda p: (torch.einsum('nlcd,nlkd->nlkc', R, p)
-                               + t[:, :, None, :])
+        qa, ka, vvp = self.attention_operands(R, t, x)
+        bias = precompute_pair_bias(z, self.proj_pair_bias.weight.t(),
+                                    mask[::reps], dt)
+        out, alphas = (attention or ipa_attention)(qa, ka, vvp, bias, reps)
 
-        q = self.proj_query(x).reshape(N, L, H, QK)
-        k = self.proj_key(x).reshape(N, L, H, QK)
-        v = self.proj_value(x).reshape(N, L, H, V)
-        qp = to_global(self.proj_query_point(x).reshape(N, L, H * P, 3))
-        kp = to_global(self.proj_key_point(x).reshape(N, L, H * P, 3))
-        vp = to_global(self.proj_value_point(x).reshape(N, L, H * PV, 3))
-
-        logits_node = torch.einsum('nihc,njhc->nijh', q, k) / math.sqrt(QK)
-        pair_bias = self.proj_pair_bias(z)                   # (Nc, L, L, H)
-        qh, kh = qp.reshape(N, L, H, P * 3), kp.reshape(N, L, H, P * 3)
-        sq_q, sq_k = qh.square().sum(-1), kh.square().sum(-1)
-        cross = torch.einsum('nihc,njhc->nijh', qh, kh)
-        sum_sq_dist = sq_q[:, :, None] + sq_k[:, None] - 2.0 * cross
-        logits_spatial = sum_sq_dist * self.spatial_coefficient().to(sum_sq_dist.dtype)
-        Nc = N // reps
-        r5 = lambda a: a.reshape(Nc, reps, L, L, H)
-        logits = ((r5(logits_node) + pair_bias[:, None] + r5(logits_spatial))
-                  * _INV_SQRT3).reshape(N, L, L, H)
-        alpha = _masked_softmax(logits.float(), mask, dim=2).to(dt)
-
-        feat_p2n = torch.einsum('crijh,cijd->crihd', r5(alpha), z.to(dt)
-                                ).reshape(N, L, -1)
-        feat_node = torch.einsum('nijh,njhc->nihc', alpha, v).reshape(N, L, -1)
-        aggr = torch.einsum('nijh,njhpc->nihpc', alpha,
-                            vp.reshape(N, L, H, PV, 3)).reshape(N, L, H * PV, 3)
+        # Zero the attention outputs of masked query rows (the reference
+        # zeroes their alpha rows).
+        rowm = mask.to(dt)[:, :, None, None]
+        feat_p2n = (p2n_aggregate(alphas, z.to(dt), reps) * rowm
+                    ).reshape(N, L, -1)
+        out = out.reshape(N, L, H, SLOT) * rowm
+        feat_node = out[..., :V].reshape(N, L, H * V)
+        aggr = (out[..., V:V + 3 * PV].reshape(N, L, H, 3, PV)
+                .transpose(-1, -2).reshape(N, L, H * PV, 3).float())
+        R, t = R.reshape(N, L, 3, 3).float(), t.float()
         feat_points = torch.einsum('nldc,nlkd->nlkc', R,
                                    aggr - t[:, :, None, :])   # R^T (g - t)
         feat_distance = torch.sqrt(feat_points.square().sum(-1) + 1e-12)
@@ -127,9 +149,11 @@ class GAEncoder(nn.Module):
             GABlock(node_feat_dim, pair_feat_dim, dtype=dtype, **block_opt)
             for _ in range(num_layers)])
 
-    def forward(self, R, t, res_feat, pair_feat, mask, reps: int = 1):
+    def forward(self, R, t, res_feat, pair_feat, mask, reps: int = 1,
+                attention=None):
         for block in self.blocks:
-            res_feat = block(R, t, res_feat, pair_feat, mask, reps=reps)
+            res_feat = block(R, t, res_feat, pair_feat, mask, reps=reps,
+                             attention=attention)
         return res_feat
 
 

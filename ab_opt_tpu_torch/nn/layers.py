@@ -65,6 +65,16 @@ def mlp(in_dim: int, features, dtype=torch.float32) -> nn.Sequential:
     return nn.Sequential(*layers)
 
 
+def distance_to_bins_onehot(dist, dist_min: float, dist_max: float,
+                            num_bins: int):
+    """One-hot nearest bin over linspace(dist_min, dist_max, num_bins):
+    dist (...,) -> (..., num_bins) float32 (the pRMSD target)."""
+    offsets = torch.linspace(dist_min, dist_max, num_bins,
+                             device=dist.device)
+    idx = (dist[..., None].float() - offsets).abs().argmin(-1)
+    return F.one_hot(idx, num_bins).to(torch.float32)
+
+
 class AngularEncoding(nn.Module):
     """Multi-frequency sin/cos encoding of angles: per input dim
     [x, sin(x f_k)..., cos(x f_k)...] with f = [1..k, 1, 1/2, ..., 1/k]."""

@@ -30,22 +30,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parents[1]
-_SRC = _PKG_DIR / 'csrc' / 'gablock.cu'
-_BUILD_DIR = _PKG_DIR / '_build'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+from . import build
+
+_SRC = build.CSRC_DIR / 'gablock.cu'
 _LN_EPS = 1e-10
 
 
@@ -200,47 +191,10 @@ gablock_layer_reference.calls = 0
 # ------------------------------------------------------------ the kernel
 
 
-def _nvcc() -> str:
-    path = shutil.which('nvcc')
-    if path is None:
-        cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
-        path = os.path.join(cuda_home, 'bin', 'nvcc')
-    if not os.path.exists(path):
-        raise RuntimeError(
-            'nvcc not found: the GABlock kernel is compiled from '
-            f'{_SRC} at first use and needs the CUDA toolkit')
-    return path
-
-
-def build_kernels() -> dict:
-    """Compile ``csrc/gablock.cu`` into ``_build/`` (keyed by the source's
-    hash, so an unchanged source is not rebuilt). Returns the library path,
-    the seconds the build took (0 when it was already built) and nvcc's
-    output (ptxas register and shared-memory use)."""
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    lib = _BUILD_DIR / f'gablock-{digest[:16]}.so'
-    if lib.exists():
-        return {'path': str(lib), 'seconds': 0.0, 'log': ''}
-    nvcc = _nvcc()
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, '-o', tmp, str(_SRC)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
-    os.replace(tmp, lib)
-    return {'path': str(lib), 'seconds': seconds, 'log': log}
-
-
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(build_kernels()['path'])
+    lib = ctypes.CDLL(
+        build.build_sources([_SRC], build.BUILD_DIR)[str(_SRC)]['path'])
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.gablock_workspace_bytes.argtypes = [I, I, I, I, I]
     lib.gablock_workspace_bytes.restype = ctypes.c_size_t

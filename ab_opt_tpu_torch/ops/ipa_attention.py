@@ -1,0 +1,252 @@
+"""IPA attention forward (K2) and backward (K3): the Hopper kernels, their
+wrappers, their plain PyTorch versions and the autograd function that joins
+them for training.
+
+Counterpart of ``ab_opt_tpu/ops/ipa_pallas.py``: ``_attention_fwd_call``
+(``_fwd_kernel``), ``_attention_bwd_call`` (``_bwd_kernel``), the custom VJP
+of ``_fused_attention`` and ``p2n_aggregate``. The kernel source is
+``csrc/ipa_attention.cu``, compiled at first use (see :mod:`.build`).
+
+The JAX layout at every public function, so tests feed both the same arrays
+(per-head 64-wide slots):
+
+* ``qa``, ``ka`` (N, L, H*64): augmented queries (pre-scaled) and keys;
+* ``vvp`` (N, L, H*64): [values | value points, planar | zero pad];
+* ``bias`` (N // reps, H, L, L): pair bias, pre-scaled, column mask folded
+  in; trajectory n reads its complex's block n // reps;
+* forward outputs ``out`` (N, L, H*64) and ``alphas`` (N, H, L, L), in the
+  input dtype.
+
+:func:`ipa_attention_fwd` and :func:`ipa_attention_bwd` dispatch on the
+device of their input: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel (float32 or bfloat16, L a multiple of 16 up to 512) or
+raises. There is no fallback. Counters: ``ipa_attention_fwd.launches``,
+``ipa_attention_bwd.launches`` (one per call, whatever the number of
+internal launches), and ``.calls`` on the two plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+
+SLOT = 64       # per-head width of qa / ka / vvp
+MAX_L = 512
+_SRC = build.CSRC_DIR / 'ipa_attention.cu'
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def ipa_attention_fwd_reference(qa, ka, vvp, bias, reps: int = 1):
+    """softmax(qa.ka + bias[n // reps]) and alpha.vvp in plain PyTorch:
+    logits and softmax in f32, alpha rounded to the input dtype before the
+    value product (as the TPU kernel does). Returns (out, alphas)."""
+    ipa_attention_fwd_reference.calls += 1
+    dt, f32 = qa.dtype, torch.float32
+    N, L, HD = qa.shape
+    H = HD // SLOT
+    heads = lambda a: a.reshape(N, L, H, SLOT).to(f32)
+    logits = torch.einsum('nihd,njhd->nhij', heads(qa), heads(ka))
+    logits = (logits.reshape(N // reps, reps, H, L, L)
+              + bias.to(f32)[:, None]).reshape(N, H, L, L)
+    alphas = torch.softmax(logits, dim=-1).to(dt)
+    out = torch.einsum('nhij,njhd->nihd', alphas.to(f32), heads(vvp))
+    return out.reshape(N, L, HD).to(dt), alphas
+
+
+def ipa_attention_bwd_reference(qa, ka, vvp, alphas, dout, dalphas):
+    """The VJP of the forward from its saved alphas, in plain PyTorch (f32
+    math): returns (dqa, dka, dvvp, dbias) in the input dtype, dbias per
+    trajectory (N, H, L, L); the caller sums it over replicas."""
+    ipa_attention_bwd_reference.calls += 1
+    dt, f32 = qa.dtype, torch.float32
+    N, L, HD = qa.shape
+    H = HD // SLOT
+    heads = lambda a: a.reshape(N, L, H, SLOT).to(f32)
+    alpha = alphas.to(f32)
+    do = heads(dout)
+    dal = torch.einsum('nihd,njhd->nhij', do, heads(vvp)) + dalphas.to(f32)
+    tmp = dal * alpha
+    dlog = tmp - alpha * tmp.sum(-1, keepdim=True)
+    flat = lambda a: a.reshape(N, L, HD).to(dt)
+    return (flat(torch.einsum('nhij,njhd->nihd', dlog, heads(ka))),
+            flat(torch.einsum('nhij,nihd->njhd', dlog, heads(qa))),
+            flat(torch.einsum('nhij,nihd->njhd', alpha, do)),
+            dlog.to(dt))
+
+
+ipa_attention_fwd_reference.calls = 0
+ipa_attention_bwd_reference.calls = 0
+
+
+# ------------------------------------------------------------ the kernels
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = ctypes.CDLL(
+        build.build_sources([_SRC], build.BUILD_DIR)[str(_SRC)]['path'])
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ipa_attention_fwd.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.ipa_attention_fwd.restype = I
+    lib.ipa_attention_bwd.argtypes = [P] * 11 + [I] * 4 + [P]
+    lib.ipa_attention_bwd.restype = I
+    lib.ipa_attention_error_string.argtypes = [I]
+    lib.ipa_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _require(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f'ipa_attention: {msg}')
+
+
+def _check(named, reps: int = 1):
+    """Raise on anything the kernels do not take: ``named`` maps names to
+    tensors; the first is an (N, L, H*64) operand that fixes the shapes."""
+    first = next(iter(named.values()))
+    _require(first.dim() == 3, 'operands must be (N, L, H*64)')
+    N, L, HD = first.shape
+    _require(HD % SLOT == 0 and HD > 0, f'last dim {HD} is not H*{SLOT}')
+    _require(L % 16 == 0 and 16 <= L <= MAX_L,
+             f'L={L} (multiple of 16, at most {MAX_L})')
+    _require(reps >= 1 and N % reps == 0, f'reps={reps} must divide N={N}')
+    _require(first.dtype in _DTYPES,
+             f'dtype {first.dtype} (float32 or bfloat16)')
+    H = HD // SLOT
+    shapes = {'bias': (N // reps, H, L, L), 'alphas': (N, H, L, L),
+              'dalphas': (N, H, L, L)}
+    for name, a in named.items():
+        want = shapes.get(name, (N, L, HD))
+        _require(tuple(a.shape) == want,
+                 f'{name} shape {tuple(a.shape)}, expected {want}')
+        _require(a.dtype == first.dtype,
+                 f'{name} dtype {a.dtype}, expected {first.dtype}')
+        _require(a.is_contiguous(), f'{name} must be contiguous')
+    for name, a in named.items():
+        _require(a.is_cuda and a.device == first.device,
+                 f'{name} must lie on the CUDA device of the operands, '
+                 f'not {a.device}')
+    return N, L, H
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        msg = _library().ipa_attention_error_string(err).decode()
+        raise RuntimeError(f'{what} kernel launch failed: CUDA error {err} '
+                           f'({msg})')
+
+
+def ipa_attention_fwd(qa, ka, vvp, bias, reps: int = 1):
+    """K2: (out, alphas). A CPU ``qa`` takes the plain version; any other
+    device launches the kernel (one count on ``.launches``) or raises."""
+    if qa.device.type == 'cpu':
+        return ipa_attention_fwd_reference(qa, ka, vvp, bias, reps)
+    N, L, H = _check({'qa': qa, 'ka': ka, 'vvp': vvp, 'bias': bias}, reps)
+    lib = _library()
+    with torch.cuda.device(qa.device):
+        out = torch.empty_like(qa)
+        alphas = torch.empty((N, H, L, L), dtype=qa.dtype, device=qa.device)
+        err = lib.ipa_attention_fwd(
+            qa.data_ptr(), ka.data_ptr(), vvp.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), alphas.data_ptr(), N, L, H, reps,
+            _DTYPES[qa.dtype], torch.cuda.current_stream(qa.device).cuda_stream)
+    _raise_on(err, 'ipa_attention_fwd')
+    ipa_attention_fwd.launches += 1
+    return out, alphas
+
+
+def ipa_attention_bwd(qa, ka, vvp, alphas, dout, dalphas):
+    """K3: (dqa, dka, dvvp, dbias per trajectory). Dispatches like
+    :func:`ipa_attention_fwd`; one count on ``.launches`` per call (the
+    kernel runs as two launches)."""
+    if qa.device.type == 'cpu':
+        return ipa_attention_bwd_reference(qa, ka, vvp, alphas, dout, dalphas)
+    N, L, H = _check({'qa': qa, 'ka': ka, 'vvp': vvp, 'alphas': alphas,
+                      'dout': dout, 'dalphas': dalphas})
+    lib = _library()
+    with torch.cuda.device(qa.device):
+        dqa, dka, dvvp = (torch.empty_like(qa) for _ in range(3))
+        dbias = torch.empty_like(alphas)
+        rowsum = torch.empty((N, H, L), dtype=torch.float32, device=qa.device)
+        err = lib.ipa_attention_bwd(
+            qa.data_ptr(), ka.data_ptr(), vvp.data_ptr(), alphas.data_ptr(),
+            dout.data_ptr(), dalphas.data_ptr(), dqa.data_ptr(),
+            dka.data_ptr(), dvvp.data_ptr(), dbias.data_ptr(),
+            rowsum.data_ptr(), N, L, H, _DTYPES[qa.dtype],
+            torch.cuda.current_stream(qa.device).cuda_stream)
+    _raise_on(err, 'ipa_attention_bwd')
+    ipa_attention_bwd.launches += 1
+    return dqa, dka, dvvp, dbias
+
+
+ipa_attention_fwd.launches = 0
+ipa_attention_bwd.launches = 0
+
+
+def reset_counts():
+    """Zero the kernels' launch counts and the plain versions' call
+    counts."""
+    ipa_attention_fwd.launches = 0
+    ipa_attention_bwd.launches = 0
+    ipa_attention_fwd_reference.calls = 0
+    ipa_attention_bwd_reference.calls = 0
+
+
+# ------------------------------------------------------------ autograd
+
+
+class IPAAttention(torch.autograd.Function):
+    """(out, alphas) = attention(qa, ka, vvp, bias) with the backward of the
+    TPU kernel's custom VJP: K3 from the saved alphas, then dbias summed over
+    the replicas that share a complex's bias. ``plain`` runs the plain
+    versions both ways, whatever the device (the side-by-side check)."""
+
+    @staticmethod
+    def forward(ctx, qa, ka, vvp, bias, reps: int, plain: bool):
+        fwd = ipa_attention_fwd_reference if plain else ipa_attention_fwd
+        out, alphas = fwd(qa, ka, vvp, bias, reps)
+        ctx.save_for_backward(qa, ka, vvp, alphas)
+        ctx.reps, ctx.plain = reps, plain
+        return out, alphas
+
+    @staticmethod
+    def backward(ctx, dout, dalphas):
+        qa, ka, vvp, alphas = ctx.saved_tensors
+        bwd = ipa_attention_bwd_reference if ctx.plain else ipa_attention_bwd
+        dqa, dka, dvvp, dbias = bwd(qa, ka, vvp, alphas, dout.contiguous(),
+                                    dalphas.contiguous())
+        if ctx.reps != 1:
+            N, H, L, _ = dbias.shape
+            dbias = dbias.reshape(N // ctx.reps, ctx.reps, H, L, L).sum(1)
+        return dqa, dka, dvvp, dbias, None, None
+
+
+def ipa_attention(qa, ka, vvp, bias, reps: int = 1):
+    """Differentiable (out, alphas): the K2/K3 kernels for CUDA tensors,
+    their plain versions for CPU tensors."""
+    return IPAAttention.apply(qa, ka, vvp, bias, reps, False)
+
+
+def ipa_attention_plain(qa, ka, vvp, bias, reps: int = 1):
+    """The same function through the plain versions on any device."""
+    return IPAAttention.apply(qa, ka, vvp, bias, reps, True)
+
+
+def p2n_aggregate(alphas, z, reps: int = 1):
+    """Value-from-pair aggregation sum_j alpha[n,h,i,j] z[n // reps,i,j,c]
+    -> (N, L, H, Cz); with ``reps`` > 1 the replicas of a complex share z and
+    are folded into one product of M = reps * H rows."""
+    N, H, L, _ = alphas.shape
+    if reps == 1:
+        return torch.einsum('nhij,nijc->nihc', alphas, z)
+    a = alphas.reshape(N // reps, reps * H, L, L)
+    p2n = torch.einsum('nkij,nijc->nikc', a, z)              # (Nc, L, rH, Cz)
+    Cz = z.shape[-1]
+    return (p2n.reshape(N // reps, L, reps, H, Cz)
+            .permute(0, 2, 1, 3, 4).reshape(N, L, H, Cz))

@@ -10,18 +10,23 @@ import torch
 from ..data.collate import to_device_batch
 from ..geometry import reconstruct_backbone_partially, so3vec_to_rotation
 from ..models.diffab import DiffAb
+from ..utils.device import resolve_device
 
 
 class BatchedSampler:
     """One design request: sample ``num_replicas`` trajectories per complex
-    of a batch, rebuild their backbones on the device, return numpy."""
+    of a batch, rebuild their backbones on the device, return numpy.
 
-    def __init__(self, model: DiffAb):
-        self.model = model
+    ``device=None`` runs on the CUDA card (and raises without one); pass
+    ``device='cpu'`` to run on the CPU. The model is moved there."""
+
+    def __init__(self, model: DiffAb, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
 
     def __call__(self, batch: Dict, seed: int,
                  num_replicas: int = 1) -> Dict[str, np.ndarray]:
-        device = next(self.model.parameters()).device
+        device = self.device
         batch = to_device_batch(batch, device)
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)

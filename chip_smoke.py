@@ -3,33 +3,73 @@
 Phases, each fatal on failure:
   1. device: require CUDA, print the card's name and power limit, turn
      TF32 off;
-  2. build: compile the GABlock kernel from ab_opt_tpu_torch/csrc;
-  3. kernel vs plain: the GABlock kernel against its plain PyTorch version
+  2. build: compile every kernel source in ab_opt_tpu_torch/csrc (the
+     GABlock kernel K1, the IPA attention kernels K2/K3), one nvcc per
+     source, all started together;
+  3. K1 vs plain: the GABlock kernel against its plain PyTorch version
      at the sampler's widths (F=128, Cz=64, H=12, L=128), bf16, atol/rtol
      0.05 on valid rows, cases (Nc=1, reps=32), (Nc=2, reps=4, 8 padded
      rows) and (Nc=1, reps=256); per-layer times of both at reps 32 and
      256;
-  4. the slice: DiffAb (bf16, seeded random weights) on a synthetic complex
-     at L=128 answers three BatchedSampler requests (fan-out 32, 32, 256;
-     100 steps each). Each must give finite outputs, leave the context
-     residues unchanged, launch the kernel exactly 100 x 6 times and call
-     the plain version 0 times. Before that, one denoiser evaluation of the
-     same model with the encoder through the kernel is held against the
-     same evaluation through the plain version.
+  4. K2/K3 vs plain: the attention forward (out, alphas) and backward
+     (dqa, dka, dvvp, dbias) against their plain versions at the training
+     slice's shapes (N=16, L=128, H=12, bf16: each tensor within 1e-2
+     relative plus 1e-3 of its largest value), at (N=4, reps=2, L=128,
+     5 padded key columns, f32) and at (N=2, reps=2, L=48, 5 padded key
+     columns, f32), both f32 cases at atol/rtol 1e-3; times of both at
+     the slice's shapes;
+  5. the sampling slice: DiffAb (bf16, seeded random weights) on a
+     synthetic complex at L=128 answers three BatchedSampler requests
+     (fan-out 32, 32, 256; 100 steps each). Each must give finite outputs,
+     leave the context residues unchanged, launch K1 exactly 100 x 6 times
+     and call its plain version 0 times. Before that, one denoiser
+     evaluation of the same model with the encoder through the kernel is
+     held against the same evaluation through the plain version;
+  6. the training slice: a Trainer on the card with the DiffAb train step
+     of bench.py (bf16, 6 layers, batch 16 of the synthetic complex at
+     L=128, Adam 1e-4, clip 100). One step's losses and gradients through
+     K2/K3 are held against the same step through the plain versions (same
+     parameters, batch, t and draws); then 1 warm-up and 10 timed steps
+     through Trainer.train, whose finite-loss guard raises on any step
+     with a non-finite loss, with exactly 60 K2 and 60 K3 launches (6 a
+     step) and no plain call; then the checkpoint it saved is resumed by
+     a fresh Trainer, which takes one more finite step.
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches, errors and times.
+the kernels with their launches, errors, times and bounds.
 
 Run from the repository root: python3 chip_smoke.py
 """
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 L = 128
 FANOUTS = (32, 32, 256)
 TOL = 0.05
 DENOISER_TOL = 0.03
+# K2/K3 vs plain. Both compute in f32 and round each output once, so in
+# bf16 they differ by at most about one bf16 ulp (2^-7 relative): each
+# tensor within ATTN_BF16_RTOL of |plain| plus ATTN_BF16_ATOL_FRAC of its
+# largest value. In f32, atol/rtol ATTN_F32_TOL.
+ATTN_BF16_RTOL = 1e-2
+ATTN_BF16_ATOL_FRAC = 1e-3
+ATTN_F32_TOL = 1e-3
+TRAIN_BATCH = 16
+TIMED_STEPS = 10
+# Kernel vs plain training step. First measured on an H100 (bf16, the
+# slice's step): losses within 5.7e-5 relative, gradient cosine 0.99975,
+# global norms within 9.6e-4; the bounds keep a 10-20x margin.
+LOSS_RTOL = 1e-3          # each loss, relative
+GRAD_COS = 0.999          # cosine of the flattened gradients
+GRAD_NORM_RTOL = 0.01     # global gradient norms, relative
+# H100 SXM peaks (NVIDIA data sheet): the bf16 dense tensor-core rate (the
+# kernels' inputs are bf16 on the timed paths) and the HBM3 bandwidth.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
 
 def _cuda_ms(fn, iters):
@@ -71,14 +111,47 @@ def _layer_case(Nc, reps, n_pad, seed, device):
     return (to(x), to(R9), to(t), zb, bias, to(mask), wb, reps)
 
 
+def _nbytes(*tensors):
+    return sum(a.numel() * a.element_size() for a in tensors)
+
+
+def _bound(flops, nbytes):
+    """The least time the card could take for bf16 work: the larger of the
+    operations over the peak rate and the bytes over the memory rate.
+    Returns (ms, 'operations' or 'bytes')."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
+                                       else 'bytes')
+
+
+def _gablock_bound(args):
+    """K1's bound for one layer on these inputs: the GEMMs and attention
+    products of the layer at their unpadded widths (projections; logits
+    over QK + 3P + 2 terms a pair: the query-key product, the point
+    distances and the two rank-1 norm terms; alpha times V + 3PV values;
+    p2n over Cz), each input (weights included) read once and the output
+    written once."""
+    x, R9, t, z, bias, mask, wb, reps = args
+    H, QK, V, P, PV = wb['dims']
+    N, Ln, F = x.shape
+    M, Cz, ko = N * Ln, z.shape[-1], wb['w_out'].shape[0]
+    proj = H * (2 * QK + V) + 3 * H * (2 * P + PV)
+    per_pair = (QK + 3 * P + 2) + (V + 3 * PV) + Cz
+    flops = (2 * M * F * proj + 2 * N * H * Ln * Ln * per_pair
+             + 2 * M * ko * F + 3 * 2 * M * F * F)
+    weights = [v for v in wb.values() if hasattr(v, 'numel')]
+    return _bound(flops, _nbytes(x, R9, t, z, bias, mask, *weights, x))
+
+
 def phase_kernel(device):
     """Kernel vs plain version at the sampler's shapes, then their times.
-    Returns (max_abs_err, {reps: (kernel_ms, plain_ms)})."""
+    Returns (max_abs_err, {reps: (kernel_ms, plain_ms)},
+    {reps: (bound_ms, bound_by)})."""
     import torch
     from ab_opt_tpu_torch.ops.gablock import (gablock_layer,
                                               gablock_layer_reference)
     torch.set_grad_enabled(False)
-    worst, times = 0.0, {}
+    worst, times, bounds = 0.0, {}, {}
     for Nc, reps, n_pad in ((1, 32, 0), (2, 4, 8), (1, 256, 0)):
         args = _layer_case(Nc, reps, n_pad, seed=Nc + reps, device=device)
         got = gablock_layer(*args)
@@ -99,9 +172,101 @@ def phase_kernel(device):
             p_ms = _cuda_ms(lambda: gablock_layer_reference(*args), 5)
             k_ms2 = _cuda_ms(lambda: gablock_layer(*args), 20)
             times[reps] = (min(k_ms, k_ms2), p_ms)
+            bounds[reps] = _gablock_bound(args)
             print(f'per-layer ms at reps={reps} (N={reps}, L={L}): '
-                  f'kernel {k_ms:.4f} / {k_ms2:.4f}, plain {p_ms:.4f}')
-    return worst, times
+                  f'kernel {k_ms:.4f} / {k_ms2:.4f}, plain {p_ms:.4f}, '
+                  f'bound {bounds[reps][0]:.4f} ({bounds[reps][1]})')
+    return worst, times, bounds
+
+
+def _attention_case(N, Ln, reps, dtype, n_pad, seed, device, H=12):
+    """Seeded K2/K3 operands: qa, ka, vvp, bias, dout, dalphas."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=g,
+                                          device=device) * scale
+    HD = H * 64
+    qa, ka = r(N, Ln, HD, scale=0.5), r(N, Ln, HD, scale=0.5)
+    vvp, dout = r(N, Ln, HD), r(N, Ln, HD)
+    bias = r(N // reps, H, Ln, Ln)
+    if n_pad:
+        bias[..., Ln - n_pad:] -= 1e5
+    dalphas = r(N, H, Ln, Ln, scale=0.1)
+    return [a.to(dtype).contiguous()
+            for a in (qa, ka, vvp, bias, dout, dalphas)]
+
+
+def phase_attention(device):
+    """K2/K3 vs their plain versions, then their times at the training
+    slice's shapes. Returns {'fwd': {...}, 'bwd': {...}} with max_abs_err,
+    ms, plain_ms, bound_ms and bound_by."""
+    import torch
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    torch.set_grad_enabled(False)
+    res = {k: {'max_abs_err': 0.0} for k in ('fwd', 'bwd')}
+    cases = ((TRAIN_BATCH, L, 1, torch.bfloat16, 0),
+             (4, L, 2, torch.float32, 5),
+             (2, 48, 2, torch.float32, 5))
+    for N, Ln, reps, dtype, n_pad in cases:
+        qa, ka, vvp, bias, dout, dalphas = _attention_case(
+            N, Ln, reps, dtype, n_pad, seed=N + Ln, device=device)
+        fwd = lambda: ia.ipa_attention_fwd(qa, ka, vvp, bias, reps)
+        got = fwd()
+        alphas = got[1]
+        bwd = lambda: ia.ipa_attention_bwd(qa, ka, vvp, alphas, dout, dalphas)
+        got_b = bwd()
+        torch.cuda.synchronize()
+        ref = ia.ipa_attention_fwd_reference(qa, ka, vvp, bias, reps)
+        ref_b = ia.ipa_attention_bwd_reference(qa, ka, vvp, alphas, dout,
+                                               dalphas)
+        names = ('out', 'alphas', 'dqa', 'dka', 'dvvp', 'dbias')
+        errs = []
+        for i, (name, a, b) in enumerate(zip(names, got + got_b,
+                                             ref + ref_b)):
+            b = b.float()
+            err = (a.float() - b).abs()
+            if dtype == torch.bfloat16:
+                atol = ATTN_BF16_ATOL_FRAC * float(b.abs().max())
+                limit = atol + ATTN_BF16_RTOL * b.abs()
+            else:
+                atol = ATTN_F32_TOL
+                limit = ATTN_F32_TOL + ATTN_F32_TOL * b.abs()
+            ok = bool(torch.isfinite(a).all()) and bool((err <= limit).all())
+            errs.append(f'{name} {float(err.max()):.6f} (atol {atol:.2e})')
+            key = 'fwd' if i < 2 else 'bwd'
+            res[key]['max_abs_err'] = max(res[key]['max_abs_err'],
+                                          float(err.max()))
+            if not ok:
+                raise SystemExit(f'ipa_attention {name} disagrees with its '
+                                 f'plain version (N={N}, L={Ln}, {dtype})')
+        rtol = (ATTN_BF16_RTOL if dtype == torch.bfloat16 else ATTN_F32_TOL)
+        print(f'K2/K3 vs plain (N={N}, reps={reps}, L={Ln}, padded key '
+              f'columns={n_pad}, {str(dtype)[6:]}, rtol {rtol}): '
+              f'max_abs_err ' + ', '.join(errs))
+        if dtype != torch.bfloat16:
+            continue
+        H = bias.shape[1]
+        pairs = N * H * Ln * Ln
+        bounds = {
+            'fwd': _bound(4 * pairs * 64, _nbytes(qa, ka, vvp, bias, *got)),
+            'bwd': _bound(8 * pairs * 64,
+                          _nbytes(qa, ka, vvp, alphas, dout, dalphas,
+                                  *got_b))}
+        for key, kern, plain in (
+                ('fwd', fwd, lambda: ia.ipa_attention_fwd_reference(
+                    qa, ka, vvp, bias, reps)),
+                ('bwd', bwd, lambda: ia.ipa_attention_bwd_reference(
+                    qa, ka, vvp, alphas, dout, dalphas))):
+            k_ms = _cuda_ms(kern, 50)
+            p_ms = _cuda_ms(plain, 10)
+            k_ms2 = _cuda_ms(kern, 50)
+            res[key].update(ms=min(k_ms, k_ms2), plain_ms=p_ms,
+                            bound_ms=bounds[key][0], bound_by=bounds[key][1])
+            print(f'K{2 if key == "fwd" else 3} ms at N={N}, L={Ln}, H={H}, '
+                  f'bf16: kernel {k_ms:.4f} / {k_ms2:.4f}, plain '
+                  f'{p_ms:.4f}, bound {bounds[key][0]:.4f} '
+                  f'({bounds[key][1]})')
+    return res
 
 
 def _denoiser_check(model, batch, reps=4):
@@ -189,6 +354,131 @@ def phase_slice(device):
     return total
 
 
+def _train_draws(N, Ln, device, seed):
+    """t and every noise draw of one DiffAb.loss call, from one generator."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = lambda *s: torch.rand(*s, generator=g, device=device)
+    n = lambda *s: torch.randn(*s, generator=g, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    t = torch.randint(0, 100, (N,), generator=g, device=device)
+    return t, {'rot_axis': n(N, Ln, 3), 'rot_u': u(N, Ln),
+               'rot_frac': u(N, Ln), 'rot_gauss': n(N, Ln),
+               'pos': n(N, Ln, 3),
+               'seq_gumbel': -torch.log(-torch.log(
+                   u(N, Ln, 20) * (1.0 - tiny) + tiny))}
+
+
+def _step_vs_plain(trainer, batch):
+    """One training step's losses and gradients through K2/K3 and through
+    their plain versions: same parameters, batch, t and draws."""
+    import torch
+    from ab_opt_tpu_torch.ops.ipa_attention import ipa_attention_plain
+    t, draws = _train_draws(batch['aa'].shape[0], L, trainer.device, seed=5)
+    out = []
+    for attention in (None, ipa_attention_plain):
+        losses = trainer.loss_and_grads(batch, t=t, draws=draws,
+                                        attention=attention)
+        grads = torch.cat([p.grad.float().reshape(-1)
+                           for p in trainer.model.parameters()
+                           if p.grad is not None])
+        out.append(({k: float(v) for k, v in losses.items()}, grads))
+    trainer.optimizer.zero_grad(set_to_none=True)
+    (lk, gk), (lp, gp) = out
+    rel = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lk}
+    cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
+    nk, npl = float(gk.norm()), float(gp.norm())
+    finite = all(map(math.isfinite, list(lk.values()) + list(lp.values())))
+    print('train step, kernel vs plain attention: losses ' + ', '.join(
+        f'{k} {lk[k]:.6f}/{lp[k]:.6f} (rel {rel[k]:.2e})' for k in lk))
+    print(f'train step, kernel vs plain attention: gradient cosine '
+          f'{cos:.6f}, global norms {nk:.6f} / {npl:.6f} '
+          f'(rel {abs(nk / npl - 1):.2e}), {gk.numel()} entries')
+    if not (finite and max(rel.values()) <= LOSS_RTOL and cos >= GRAD_COS
+            and abs(nk / npl - 1) <= GRAD_NORM_RTOL):
+        raise SystemExit('training step through K2/K3 disagrees with the '
+                         'plain path')
+
+
+def phase_train(device):
+    """The training slice (see the module docstring, phase 6). Returns the
+    K2 and K3 launches of the timed run."""
+    import dataclasses
+    import itertools
+
+    import numpy as np
+    import torch
+    from ab_opt_tpu_torch.models import DiffAb, DiffAbConfig
+    from ab_opt_tpu_torch.ops import build
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.train import DIFFAB_TRAIN_CONFIG, Trainer
+    from ab_opt_tpu_torch.utils.bench_fixture import synthetic_batch
+
+    torch.set_grad_enabled(True)
+    torch.manual_seed(2)
+    cfg = DiffAbConfig(dtype='bfloat16')
+    full = {'model': dataclasses.asdict(cfg), 'train': DIFFAB_TRAIN_CONFIG}
+    log_dir = build.BUILD_DIR / 'chip_smoke_train'
+    shutil.rmtree(log_dir, ignore_errors=True)
+    trainer = Trainer(DiffAb(cfg), DIFFAB_TRAIN_CONFIG, log_dir=str(log_dir),
+                      full_config=full)
+    assert trainer.device.type == 'cuda'
+    batch = synthetic_batch(np.random.default_rng(1), N=TRAIN_BATCH, L=L,
+                            n_ab=int(L * 0.7), gen_lo=L // 4,
+                            gen_hi=L // 4 + 8, device=trainer.device)
+    _step_vs_plain(trainer, batch)
+
+    # One warm-up step, then the timed run through Trainer.train.
+    gen = torch.Generator(device=trainer.device).manual_seed(4)
+    trainer.train_step(batch, generator=gen)
+    torch.cuda.synchronize()
+    first = trainer.iteration
+    ia.reset_counts()
+    t0 = time.perf_counter()
+    # Trainer.train raises FloatingPointError on a non-finite loss at any
+    # step; it ends by reading the last step's finite flag and saving a
+    # checkpoint, so the time below covers all queued work and one save.
+    trainer.train(itertools.repeat(batch), max_iters=first + TIMED_STEPS,
+                  seed=3, log_every=TIMED_STEPS)
+    seconds = time.perf_counter() - t0
+    launches = (ia.ipa_attention_fwd.launches, ia.ipa_attention_bwd.launches)
+    plain = (ia.ipa_attention_fwd_reference.calls,
+             ia.ipa_attention_bwd_reference.calls)
+    steps = trainer.iteration - first
+    t1 = time.perf_counter()
+    trainer.save()
+    save_s = time.perf_counter() - t1
+    step_s = (seconds - save_s) / steps
+    layers = cfg.num_layers
+    print(f'train: {steps} timed steps at batch {TRAIN_BATCH}, L={L}, bf16, '
+          f'{layers} layers through Trainer.train: {seconds:.3f} s with the '
+          f'final save, one save alone {save_s:.3f} s; without it '
+          f'{step_s * 1e3:.3f} ms/step, {TRAIN_BATCH / step_s:.3f} samples/s')
+    print(f'train: K2 launches {launches[0]}, K3 launches {launches[1]}, '
+          f'plain calls {plain[0]} + {plain[1]}')
+    if not (steps == TIMED_STEPS
+            and launches == (layers * steps, layers * steps)
+            and plain == (0, 0)):
+        raise SystemExit('training steps failed their checks')
+
+    # The checkpoint Trainer.train saved, resumed by a fresh trainer.
+    path = log_dir / 'checkpoints' / f'{trainer.iteration}.ckpt'
+    fresh = Trainer(DiffAb(cfg), DIFFAB_TRAIN_CONFIG, full_config=full)
+    fresh.resume(str(path))
+    same = all(torch.equal(a, b) for a, b in zip(
+        trainer.model.state_dict().values(),
+        fresh.model.state_dict().values()))
+    losses = fresh.train_step(batch, generator=gen)
+    finite = all(math.isfinite(float(v)) for v in losses.values())
+    print(f'checkpoint {path.name}: restored iteration {fresh.iteration - 1}, '
+          f'weights equal={same}; one more step: finite={finite}, overall '
+          f'{float(losses["overall"]):.4f}')
+    shutil.rmtree(log_dir, ignore_errors=True)
+    if not (same and finite and fresh.iteration == trainer.iteration + 1):
+        raise SystemExit('checkpoint round trip failed')
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -203,22 +493,33 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device('cuda:0')
 
-    from ab_opt_tpu_torch.ops.gablock import build_kernels
-    build = build_kernels()
-    print(f'build: {build["seconds"]:.2f} s -> {build["path"]}')
-    for line in build['log'].splitlines():
-        if 'registers' in line or 'Compiling' in line:
-            print(f'  {line.strip()}')
+    from ab_opt_tpu_torch.ops import build
+    t0 = time.perf_counter()
+    for src, res in build.build_all().items():
+        print(f'build: {Path(src).name} {res["seconds"]:.2f} s -> {res["path"]}')
+        for line in res['log'].splitlines():
+            if 'registers' in line or 'Compiling' in line:
+                print(f'  {line.strip()}')
+    print(f'build: {time.perf_counter() - t0:.2f} s for all sources')
 
-    max_err, times = phase_kernel(device)
+    max_err, times, bounds = phase_kernel(device)
+    attn = phase_attention(device)
     launches = phase_slice(device)
+    k2, k3 = phase_train(device)
 
-    print(json.dumps({'kernels': [{
-        'name': 'gablock', 'route': 'cuda',
-        'source': 'ab_opt_tpu_torch/csrc/gablock.cu',
-        'replaces': 'ab_opt_tpu/ops/gablock_pallas.py:390',
-        'launches': launches, 'max_abs_err': max_err,
-        'ms': times[256][0], 'plain_ms': times[256][1]}]}))
+    kernels = [dict(
+        name='gablock', route='cuda', source='ab_opt_tpu_torch/csrc/gablock.cu',
+        replaces='ab_opt_tpu/ops/gablock_pallas.py:390', launches=launches,
+        max_abs_err=max_err, ms=times[256][0], plain_ms=times[256][1],
+        bound_ms=bounds[256][0], bound_by=bounds[256][1], library_ms=None)]
+    for key, name, line, n in (('fwd', 'ipa_attention_fwd', 101, k2),
+                               ('bwd', 'ipa_attention_bwd', 183, k3)):
+        kernels.append(dict(
+            name=name, route='cuda',
+            source='ab_opt_tpu_torch/csrc/ipa_attention.cu',
+            replaces=f'ab_opt_tpu/ops/ipa_pallas.py:{line}', launches=n,
+            **attn[key], library_ms=None))
+    print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""The GABlock kernel against its plain version, on an NVIDIA GPU (marker
+"""The GABlock kernel (K1) and the IPA attention kernels (K2, K3) against
+their plain versions, on an NVIDIA GPU (marker
 ``cuda``; skips without a card). Imports no JAX, so it also runs where only
 the port is installed:
 
@@ -42,3 +43,70 @@ def test_kernel_matches_plain_on_card(L, Nc, reps):
     valid = args[5] > 0
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got[valid], ref[valid], atol=0.05, rtol=0.05)
+
+
+def _attention_case(L, Nc, reps, dtype, dev, H=12, n_pad=5, seed=0):
+    """Seeded K2/K3 operands (made on the CPU, moved to ``dev``)."""
+    from ab_opt_tpu_torch.ops.ipa_attention import SLOT
+    g = torch.Generator().manual_seed(seed)
+    N = Nc * reps
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=g) * scale
+    qa, ka, vvp, dout = (r(N, L, H * SLOT, scale=s) for s in (0.5, 0.5, 1, 1))
+    bias = r(Nc, H, L, L)
+    bias[..., L - n_pad:] -= 1e5            # padded key columns
+    dalphas = r(N, H, L, L, scale=0.1)
+    to = lambda a: a.to(dev, dtype).contiguous()
+    return tuple(map(to, (qa, ka, vvp, bias, dout, dalphas)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('L,Nc,reps', [(16, 2, 1), (48, 1, 2), (128, 2, 1),
+                                       (512, 1, 2)])
+def test_attention_kernels_match_plain_on_card(L, Nc, reps, dtype):
+    """K2 (out, alphas) and K3 (dqa, dka, dvvp, dbias) against their plain
+    versions: atol/rtol 1e-3 in float32. Both sides compute in f32 and round
+    each output once, so in bf16 they differ by about one ulp (2^-7
+    relative): rtol 1e-2 and atol 1e-3 of the tensor's largest value."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    qa, ka, vvp, bias, dout, dalphas = _attention_case(
+        L, Nc, reps, dtype, torch.device('cuda'))
+    got = ia.ipa_attention_fwd(qa, ka, vvp, bias, reps)
+    got += ia.ipa_attention_bwd(qa, ka, vvp, got[1], dout, dalphas)
+    torch.cuda.synchronize()
+    ref = ia.ipa_attention_fwd_reference(qa, ka, vvp, bias, reps)
+    ref += ia.ipa_attention_bwd_reference(qa, ka, vvp, got[1], dout, dalphas)
+    names = ('out', 'alphas', 'dqa', 'dka', 'dvvp', 'dbias')
+    for name, a, b in zip(names, got, ref):
+        assert a.dtype == dtype and torch.isfinite(a).all(), name
+        b = b.float()
+        if dtype == torch.float32:
+            atol = rtol = 1e-3
+        else:
+            atol, rtol = 1e-3 * float(b.abs().max()), 1e-2
+        torch.testing.assert_close(a.float(), b, atol=atol, rtol=rtol,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_reach_the_plain_attention():
+    """Forward and backward through the autograd function on CUDA tensors
+    launch K2 and K3 once each and call no plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    qa, ka, vvp, bias, dout, dalphas = _attention_case(
+        64, 2, 2, torch.bfloat16, torch.device('cuda'))
+    leaves = [a.requires_grad_() for a in (qa, ka, vvp, bias)]
+    ia.reset_counts()
+    out, alphas = ia.ipa_attention(*leaves, reps=2)
+    ((out.float() * dout.float()).sum()
+     + (alphas.float() * dalphas.float()).sum()).backward()
+    torch.cuda.synchronize()
+    assert (ia.ipa_attention_fwd.launches, ia.ipa_attention_bwd.launches) == (1, 1)
+    assert ia.ipa_attention_fwd_reference.calls == 0
+    assert ia.ipa_attention_bwd_reference.calls == 0
+    assert all(torch.isfinite(a.grad).all() for a in leaves)
+    assert bias.grad.shape == bias.shape

@@ -172,9 +172,9 @@ def test_wrapper_rejects_non_cuda_device():
 def test_wrapper_raises_without_a_cuda_build(monkeypatch, tmp_path):
     """With no toolkit the build raises, and the wrapper passes that on
     instead of falling back to the plain version."""
-    monkeypatch.setattr(gb.shutil, 'which', lambda name: None)
+    monkeypatch.setattr('shutil.which', lambda name: None)
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))
-    monkeypatch.setattr(gb, '_BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(gb.build, 'BUILD_DIR', tmp_path / 'build')
     monkeypatch.setattr(gb, '_check_inputs', lambda *a: None)
     gb._library.cache_clear()
     gb.reset_counts()

@@ -124,7 +124,8 @@ def test_synthetic_batch_matches_jax():
 
 def test_package_imports_without_jax():
     """Every module of ab_opt_tpu_torch, and chip_smoke.py, imports in a
-    fresh interpreter without pulling in jax or flax."""
+    fresh interpreter without pulling in jax, flax or any module of the JAX
+    package ab_opt_tpu."""
     code = (
         'import importlib, pkgutil, sys\n'
         'import ab_opt_tpu_torch, chip_smoke\n'
@@ -132,7 +133,8 @@ def test_package_imports_without_jax():
         '                               "ab_opt_tpu_torch."):\n'
         '    importlib.import_module(m.name)\n'
         'bad = sorted(k for k in sys.modules\n'
-        '             if k.split(".")[0] in ("jax", "jaxlib", "flax"))\n'
+        '             if k.split(".")[0] in ("jax", "jaxlib", "flax")\n'
+        '             or k == "ab_opt_tpu" or k.startswith("ab_opt_tpu."))\n'
         'assert not bad, bad\n'
         'print("imported", len([k for k in sys.modules\n'
         '                       if k.startswith("ab_opt_tpu_torch")]))\n')
@@ -143,11 +145,28 @@ def test_package_imports_without_jax():
 
 
 def test_sources_name_no_jax():
+    """No source of the port, nor chip_smoke.py, imports jax, flax or the
+    JAX package ab_opt_tpu."""
     import re
-    pat = re.compile(r'^\s*(import|from)\s+(jax|jaxlib|flax)\b', re.M)
+    pat = re.compile(r'^\s*(import|from)\s+(jax|jaxlib|flax|ab_opt_tpu)\b'
+                     r'(?!_torch)', re.M)
     root = os.path.join(REPO, 'ab_opt_tpu_torch')
+    paths = [os.path.join(REPO, 'chip_smoke.py')]
     for dirpath, _, files in os.walk(root):
-        for f in files:
-            if f.endswith('.py'):
-                text = open(os.path.join(dirpath, f)).read()
-                assert not pat.search(text), f
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith('.py')]
+    assert len(paths) > 20
+    for path in paths:
+        with open(path) as f:
+            assert not pat.search(f.read()), path
+
+
+def test_constants_copy_matches_jax_package():
+    from ab_opt_tpu import constants as J
+    from ab_opt_tpu_torch import constants as T
+    assert (T.AA_UNK, T.MAX_AA_TYPES) == (J.AA_UNK, J.MAX_AA_TYPES)
+    assert ({a.name: int(a) for a in T.BBHeavyAtom}
+            == {a.name: int(a) for a in J.BBHeavyAtom})
+    for name in ('backbone_atom_coordinates', 'bb_oxygen_coordinate'):
+        got, want = getattr(T, name), getattr(J, name)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want, err_msg=name)

@@ -103,13 +103,14 @@ def test_reverse_steps_match_jax(seed):
 
 
 def test_batched_sampler_keeps_context():
-    """BatchedSampler on CPU: finite outputs of the fan-out shape, context
-    residues (atoms and codes) unchanged."""
+    """BatchedSampler on CPU (asked for explicitly): finite outputs of the
+    fan-out shape, context residues (atoms and codes) unchanged."""
     from ab_opt_tpu_torch.runners.design import BatchedSampler
     _, _, jbatch, tmodel, tbatch = small_models(L=24, num_layers=1,
                                                 num_steps=3)
-    out = BatchedSampler(tmodel)({k: np.array(v) for k, v in jbatch.items()},
-                                 seed=0, num_replicas=3)
+    sampler = BatchedSampler(tmodel, device='cpu')
+    out = sampler({k: np.array(v) for k, v in jbatch.items()}, seed=0,
+                  num_replicas=3)
     assert out['pos_atom_new'].shape == (3, 24, 15, 3)
     assert all(np.isfinite(out[k]).all() for k in ('p', 'v', 'pos_atom_new'))
     ctx = ~np.asarray(jbatch['generate_flag'])[0]

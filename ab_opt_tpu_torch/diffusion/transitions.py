@@ -70,6 +70,18 @@ class PositionTransition:
         p_next = float(c0) * (p_t - float(c1) * eps_p) + noise
         return _mask_mix(mask_generate, p_next, p_t)
 
+    def ddim_step(self, p_t, eps_p, mask_generate, t: int, t_next: int):
+        """Deterministic DDIM (eta = 0) jump t -> t_next < t, the strided
+        sampler's position step: p_0 recovered from the predicted noise,
+        re-noised at level t_next with that same noise."""
+        s = self.sched
+        p_0 = (float(s.sqrt_recip_alpha_bars[t]) * p_t
+               - float(s.sqrt_recipm1_alpha_bars[t]) * eps_p)
+        ab = s.alpha_bars[t_next]
+        p_next = (float(np.sqrt(ab)) * p_0
+                  + float(np.sqrt(np.float32(1.0) - ab)) * eps_p)
+        return _mask_mix(mask_generate, p_next, p_t)
+
     def pred_noise_from_start(self, p_t, p_0, mask_generate, t: int):
         """eps = (p_t / sqrt(abar) - p_0) / sqrt(1/abar - 1)."""
         cr = float(self.sched.sqrt_recip_alpha_bars[t])
@@ -124,7 +136,8 @@ class RotationTransition:
     def denoise(self, v_t, v_next, mask_generate, t: int, *, axis=None,
                 u=None, frac=None, gauss=None, generator=None):
         """Reverse step: the network already outputs the updated rotation
-        ``v_next``; compose IGSO3(sigma_t) noise except at the last steps.
+        ``v_next``; compose IGSO3(sigma_t) noise except at the last steps
+        (t <= 1). A strided step passes its target level t_next as ``t``.
         Draws as :func:`~.igso3.sample_igso3_vector`."""
         shape = v_t.shape[:-1]
         e = sample_igso3_vector(self.igso3_inv, t, shape, axis=axis, u=u,

@@ -1,22 +1,26 @@
-"""The DiffAb sequence-structure co-design model: the training losses and
-reverse-diffusion sampling with trajectory fan-out.
+"""The DiffAb sequence-structure co-design model: the training losses,
+reverse-diffusion sampling with trajectory fan-out (ancestral or strided)
+and the optimize path (noise the native state to a step, then denoise).
 
-Counterpart of ``ab_opt_tpu/models/diffab.py`` (``loss``; ``sample`` at
-stride 1). :class:`DiffAbNet` holds the parameters under the reference's
-state-dict names (``residue_embed.*``, ``pair_embed.*``,
+Counterpart of ``ab_opt_tpu/models/diffab.py`` (``loss``, ``sample``,
+``optimize``). :class:`DiffAbNet` holds the parameters under the
+reference's state-dict names (``residue_embed.*``, ``pair_embed.*``,
 ``diffusion.eps_net.*``); :class:`DiffAb` adds the transitions,
-:meth:`DiffAb.loss` and :meth:`DiffAb.sample`.
+:meth:`DiffAb.loss`, :meth:`DiffAb.sample` and :meth:`DiffAb.optimize`.
 
 The loss runs the eager GAEncoder, whose attention goes through the K2/K3
 kernels under autograd (:mod:`ab_opt_tpu_torch.ops.ipa_attention`), and
 the per-head output modules.
 
 The reverse loop is a Python loop over t (a Python int inside the step).
-What stays fixed across steps is built once per ``sample`` call: the
-per-layer pair biases, the GABlock kernel weight bundles and the stacked
-head weights. The encoder runs through
-:func:`ab_opt_tpu_torch.ops.gablock.gablock_layer`: the Hopper kernel for
-CUDA tensors, its plain version for CPU tensors.
+What stays fixed across steps is built once per call: the per-layer pair
+biases, the GABlock kernel weight bundles and the stacked head weights.
+``DiffAbConfig.ipa_impl`` picks the encoder's route, as in the JAX
+package: ``'auto'`` and ``'pallas_fused'`` run every layer through
+:func:`ab_opt_tpu_torch.ops.gablock.gablock_layer` (K1); ``'pallas'`` runs
+the eager GAEncoder in its sampling form, whose attention is
+:func:`ab_opt_tpu_torch.ops.ipa_attention.ipa_attention_fwd_p2n` (K4). Each
+is the Hopper kernel for CUDA tensors, its plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -34,8 +38,15 @@ from ..nn import EpsilonNet, PairEmbedding, ResidueEmbedding
 from ..nn.epsilon_net import precompute_head_weights
 from ..nn.ipa import precompute_encoder_pair_biases
 from ..ops.gablock import build_encoder_weights, gablock_layer
+from ..ops.ipa_attention import ipa_attention_fwd_p2n
 from . import losses as Ls
 from .losses import compute_prmsd, sequence_perplexity
+
+
+# The sampler's encoder routes: the per-layer GABlock kernel (K1) for
+# 'auto' and 'pallas_fused', the eager GAEncoder over the attention kernel
+# with in-kernel pair aggregation (K4) for 'pallas'.
+IPA_IMPLS = ('auto', 'pallas_fused', 'pallas')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +67,12 @@ class DiffAbConfig:
     mask_ratio_min: float = 0.0        # random partial-CDR masking (0 = off)
     mask_ratio_max: float = 0.0
     dtype: str = 'float32'             # compute dtype for dense layers
+    ipa_impl: str = 'auto'             # sampler's encoder route: IPA_IMPLS
+
+    def __post_init__(self):
+        if self.ipa_impl not in IPA_IMPLS:
+            raise ValueError(f'ipa_impl={self.ipa_impl!r}: the port takes '
+                             f'{", ".join(map(repr, IPA_IMPLS))}')
 
     @property
     def compute_dtype(self):
@@ -247,12 +264,15 @@ class DiffAb(DiffAbNet):
     @torch.no_grad()
     def sample(self, batch, generator: Optional[torch.Generator] = None,
                sample_structure: bool = True, sample_sequence: bool = True,
-               num_replicas: int = 1, draws: Optional[Dict] = None):
+               num_replicas: int = 1, draws: Optional[Dict] = None,
+               stride: int = 1, keep_traj: bool = False):
         """Full reverse-diffusion sampling with trajectory fan-out.
 
         Encoding runs once on ``batch``; ``num_replicas`` > 1 tiles the
         features to batch * num_replicas independent trajectories while the
         pair tensor stays per complex (shared inside the attention).
+        ``stride`` > 1 jumps t -> max(t - stride, 0) (see
+        :meth:`reverse_step`).
 
         ``draws`` optionally supplies every noise draw (else ``generator``
         draws them): 'init_quat' (N, L, 4) and 'init_pos' (N, L, 3) standard
@@ -261,7 +281,8 @@ class DiffAb(DiffAbNet):
         'rot_gauss' (N, L), 'pos' (N, L, 3) and 'seq_gumbel' (N, L, 20).
 
         Returns final 'v', 'p' (unnormalized), 's' and per-step 'prmsd' and
-        'perplexity' (T, N).
+        'perplexity' (steps, N); with ``keep_traj`` also 'traj', the state
+        after every step: 'v', 'p' (unnormalized), 's', each (steps, N, ...).
         """
         draws = draws or {}
         reps = num_replicas
@@ -295,26 +316,77 @@ class DiffAb(DiffAbNet):
                                        device=dev)
             s = torch.where(mask_generate, s_rand.long(), s)
 
-        v, p, s, outs = self._reverse_loop(
+        return self._reverse_loop(
             v, p, s, res_feat, pair_feat, mask_generate, mask_res,
             self.cfg.num_steps, sample_structure, sample_sequence, reps,
-            generator, draws.get('steps'))
-        return {'v': v, 'p': self.unnormalize_position(p), 's': s, **outs}
+            generator, draws.get('steps'), stride, keep_traj)
+
+    @torch.no_grad()
+    def optimize(self, batch, opt_step: int,
+                 generator: Optional[torch.Generator] = None,
+                 sample_structure: bool = True, sample_sequence: bool = True,
+                 keep_traj: bool = False, draws: Optional[Dict] = None):
+        """Noise the native state to step ``opt_step`` (forward noising at
+        t = opt_step for every complex), then denoise opt_step -> 0, one
+        trajectory per row of ``batch`` (replicate the batch for more).
+
+        ``draws`` optionally supplies every noise draw, in the JAX order of
+        keys (k_rot, k_pos, k_seq, then the loop): 'rot_axis' (N, L, 3),
+        'rot_u', 'rot_frac', 'rot_gauss' (N, L) for the rotation noising,
+        'pos' (N, L, 3), 'seq_gumbel' (N, L, 20), and 'steps' as in
+        :meth:`sample`. Returns what :meth:`sample` returns.
+        """
+        d = draws or {}
+        mask_generate, mask_res = batch['generate_flag'], batch['mask']
+        res_feat, pair_feat, R_0, p_ctx = self.encode(
+            batch, sample_structure, sample_sequence)
+        v = rotation_to_so3vec(R_0)
+        p = self.normalize_position(p_ctx)
+        s = batch['aa'].long()
+        t_vec = torch.full((s.shape[0],), opt_step, dtype=torch.long,
+                           device=s.device)
+        self.trans_rot.to(s.device)
+        if sample_structure:
+            v, _ = self.trans_rot.add_noise(
+                v, mask_generate, t_vec, axis=d.get('rot_axis'),
+                u=d.get('rot_u'), frac=d.get('rot_frac'),
+                gauss=d.get('rot_gauss'), generator=generator)
+            p, _ = self.trans_pos.add_noise(p, mask_generate, t_vec,
+                                            eps=d.get('pos'),
+                                            generator=generator)
+        if sample_sequence:
+            _, s = self.trans_seq.add_noise(s, mask_generate, t_vec,
+                                            gumbel=d.get('seq_gumbel'),
+                                            generator=generator)
+        return self._reverse_loop(
+            v, p, s, res_feat, pair_feat, mask_generate, mask_res, opt_step,
+            sample_structure, sample_sequence, 1, generator, d.get('steps'),
+            1, keep_traj)
 
     def prepare_denoiser(self, pair_feat, mask_res, reps: int = 1,
-                         layer=gablock_layer):
+                         layer=gablock_layer, attention=ipa_attention_fwd_p2n):
         """The step-invariant operands of the denoiser, built once per
         sampling call: returns ``(encoder_fn, head_weights)`` for
-        :meth:`EpsilonNet.forward`. ``encoder_fn`` runs every GABlock layer
-        through ``layer`` (the kernel wrapper; the plain version for a
-        side-by-side check) with the per-layer weight bundles and pair
-        biases closed over."""
+        :meth:`EpsilonNet.forward`. ``encoder_fn`` runs the encoder by the
+        config's route with the per-layer pair biases (and, for K1, weight
+        bundles) closed over: every GABlock layer through ``layer`` (the K1
+        wrapper), or the eager GAEncoder in its sampling form with
+        ``attention`` (the K4 wrapper). Either may be given its plain
+        version, for a side-by-side check."""
         dt = self.cfg.compute_dtype
         encoder = self.eps_net.encoder
         biases = precompute_encoder_pair_biases(encoder, pair_feat,
                                                 mask_res[::reps], dt)
-        bundles = build_encoder_weights(encoder, dt)
         z = pair_feat.to(dt).contiguous()
+        head_weights = precompute_head_weights(self.eps_net, dt)
+        if self.cfg.ipa_impl == 'pallas':
+            def encoder_fn(R9, t, x, mask):
+                return encoder(R9, t, x, z, mask, reps=reps,
+                               attention=attention, pair_biases=biases,
+                               fuse_p2n=True)
+            return encoder_fn, head_weights
+
+        bundles = build_encoder_weights(encoder, dt)
         mask_f = mask_res.float().contiguous()
 
         def encoder_fn(R9, t, x, mask):
@@ -324,17 +396,20 @@ class DiffAb(DiffAbNet):
                 x = layer(x, R9, t, z, bias, mask_f, wb, reps)
             return x
 
-        return encoder_fn, precompute_head_weights(self.eps_net, dt)
+        return encoder_fn, head_weights
 
     def reverse_step(self, v, p, s, t: int, res_feat, pair_feat,
                      mask_generate, mask_res, denoiser, reps: int = 1,
                      draws: Optional[Dict] = None, generator=None,
                      sample_structure: bool = True,
-                     sample_sequence: bool = True):
-        """One reverse step t -> t-1 from state (v, p normalized, s).
-        ``denoiser`` is :meth:`prepare_denoiser`'s output; ``draws`` one
-        step's entry of :meth:`sample`'s draws. Returns (v, p, s, prmsd,
-        perplexity)."""
+                     sample_sequence: bool = True,
+                     t_next: Optional[int] = None):
+        """One reverse step from state (v, p normalized, s) at level t:
+        ancestral t -> t-1, or with ``t_next`` a strided jump t -> t_next
+        (rotations re-noised at t_next, positions by DDIM, sequences by the
+        ancestral step at t, as in the JAX package). ``denoiser`` is
+        :meth:`prepare_denoiser`'s output; ``draws`` one step's entry of
+        :meth:`sample`'s draws. Returns (v, p, s, prmsd, perplexity)."""
         cfg = self.cfg
         d = draws or {}
         encoder_fn, head_weights = denoiser
@@ -349,11 +424,15 @@ class DiffAb(DiffAbNet):
         else:
             eps_p = p_pred
         v_new = self.trans_rot.denoise(
-            v, v_next, mask_generate, t, axis=d.get('rot_axis'),
-            u=d.get('rot_u'), frac=d.get('rot_frac'), gauss=d.get('rot_gauss'),
-            generator=generator)
-        p_new = self.trans_pos.denoise(p, eps_p, mask_generate, t,
-                                       z=d.get('pos'), generator=generator)
+            v, v_next, mask_generate, t if t_next is None else t_next,
+            axis=d.get('rot_axis'), u=d.get('rot_u'), frac=d.get('rot_frac'),
+            gauss=d.get('rot_gauss'), generator=generator)
+        if t_next is None:
+            p_new = self.trans_pos.denoise(p, eps_p, mask_generate, t,
+                                           z=d.get('pos'), generator=generator)
+        else:
+            p_new = self.trans_pos.ddim_step(p, eps_p, mask_generate, t,
+                                             t_next)
         post, s_new = self.trans_seq.denoise(
             s, c_denoised, mask_generate, t, gumbel=d.get('seq_gumbel'),
             generator=generator)
@@ -366,17 +445,29 @@ class DiffAb(DiffAbNet):
 
     def _reverse_loop(self, v, p, s, res_feat, pair_feat, mask_generate,
                       mask_res, t_start: int, sample_structure: bool,
-                      sample_sequence: bool, reps: int, generator, step_draws):
-        """T -> 0 reverse loop (positions stay normalized)."""
+                      sample_sequence: bool, reps: int, generator, step_draws,
+                      stride: int = 1, keep_traj: bool = False):
+        """t_start -> 0 reverse loop, positions normalized inside; returns
+        :meth:`sample`'s dict. Steps t = t_start, t_start - stride, ... > 0,
+        each to max(t - stride, 0); every step of a strided loop is a
+        strided step."""
         denoiser = self.prepare_denoiser(pair_feat, mask_res, reps)
         self.trans_rot.to(p.device)
-        prmsd, ppl = [], []
-        for step, t in enumerate(range(t_start, 0, -1)):
+        prmsd, ppl, traj = [], [], {'v': [], 'p': [], 's': []}
+        for step, t in enumerate(range(t_start, 0, -stride)):
+            t_next = None if stride == 1 else max(t - stride, 0)
             v, p, s, score, conf = self.reverse_step(
                 v, p, s, t, res_feat, pair_feat, mask_generate, mask_res,
                 denoiser, reps, step_draws[step] if step_draws else None,
-                generator, sample_structure, sample_sequence)
+                generator, sample_structure, sample_sequence, t_next)
             prmsd.append(score)
             ppl.append(conf)
-        return v, p, s, {'prmsd': torch.stack(prmsd),
-                         'perplexity': torch.stack(ppl)}
+            if keep_traj:
+                for k, x in (('v', v), ('p', self.unnormalize_position(p)),
+                             ('s', s)):
+                    traj[k].append(x)
+        out = {'v': v, 'p': self.unnormalize_position(p), 's': s,
+               'prmsd': torch.stack(prmsd), 'perplexity': torch.stack(ppl)}
+        if keep_traj:
+            out['traj'] = {k: torch.stack(x) for k, x in traj.items()}
+        return out

@@ -9,8 +9,16 @@ the augmented 64-wide per-head operands qa/ka/vvp, the attention through
 for CUDA tensors, their plain versions for CPU tensors, differentiable),
 the pair aggregation from the exported alphas, and the row mask on the
 attention outputs. The whole block is differentiable: this is the training
-path. The sampler runs the encoder through the fused GABlock kernel
-(:mod:`ab_opt_tpu_torch.ops.gablock`) instead.
+path.
+
+``fuse_p2n=True`` is the sampling form (``fused_ipa_fast(...,
+fuse_p2n=True)``, the JAX sampler with ``ipa_impl='pallas'``): the same
+operands and a hoisted pair bias go through
+:func:`~ab_opt_tpu_torch.ops.ipa_attention.ipa_attention_fwd_p2n` (K4), which
+returns the pair aggregation itself and no alphas. It has no backward, so
+it runs under ``torch.no_grad``. The default sampler runs the encoder
+through the fused GABlock kernel (:mod:`ab_opt_tpu_torch.ops.gablock`)
+instead.
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..geometry import normalize_vector
-from ..ops.ipa_attention import SLOT, ipa_attention, p2n_aggregate
+from ..ops.ipa_attention import (SLOT, ipa_attention, ipa_attention_fwd_p2n,
+                                 p2n_aggregate)
 from .layers import LayerNorm, Linear, mlp
 
 _INV_SQRT3 = math.sqrt(1.0 / 3.0)
@@ -100,25 +109,39 @@ class GABlock(nn.Module):
         vvp = slots([heads(self.proj_value, V), flat(vg)])
         return qa, ka, vvp
 
-    def forward(self, R, t, x, z, mask, reps: int = 1, attention=None):
+    def forward(self, R, t, x, z, mask, reps: int = 1, attention=None,
+                pair_bias=None, fuse_p2n: bool = False):
         """R (N, L, 3, 3) or planar (N, L, 9); t (N, L, 3); x (N, L, F);
         z (N // reps, L, L, Cz) per complex; mask (N, L) bool.
-        ``attention(qa, ka, vvp, bias, reps) -> (out, alphas)`` defaults to
-        :func:`~ab_opt_tpu_torch.ops.ipa_attention.ipa_attention`."""
+        ``pair_bias``: this block's hoisted (N // reps, H, L, L) bias from
+        :func:`precompute_pair_bias` (else built here).
+        ``attention`` defaults to
+        :func:`~ab_opt_tpu_torch.ops.ipa_attention.ipa_attention`, with
+        signature ``(qa, ka, vvp, bias, reps) -> (out, alphas)``; with
+        ``fuse_p2n`` to
+        :func:`~ab_opt_tpu_torch.ops.ipa_attention.ipa_attention_fwd_p2n`,
+        ``(qa, ka, vvp, bias, z, reps) -> (out, p2n)``."""
         N, L = x.shape[:2]
         H, QK, V, P, PV = self.dims
         dt = self.dtype
         mask = mask.bool()
         qa, ka, vvp = self.attention_operands(R, t, x)
-        bias = precompute_pair_bias(z, self.proj_pair_bias.weight.t(),
-                                    mask[::reps], dt)
-        out, alphas = (attention or ipa_attention)(qa, ka, vvp, bias, reps)
+        if pair_bias is None:
+            pair_bias = precompute_pair_bias(
+                z, self.proj_pair_bias.weight.t(), mask[::reps], dt)
+        zc = z.to(dt).contiguous()
+        if fuse_p2n:
+            out, p2n = (attention or ipa_attention_fwd_p2n)(
+                qa, ka, vvp, pair_bias, zc, reps)
+        else:
+            out, alphas = (attention or ipa_attention)(qa, ka, vvp, pair_bias,
+                                                       reps)
+            p2n = p2n_aggregate(alphas, zc, reps)
 
         # Zero the attention outputs of masked query rows (the reference
         # zeroes their alpha rows).
         rowm = mask.to(dt)[:, :, None, None]
-        feat_p2n = (p2n_aggregate(alphas, z.to(dt), reps) * rowm
-                    ).reshape(N, L, -1)
+        feat_p2n = (p2n * rowm).reshape(N, L, -1)
         out = out.reshape(N, L, H, SLOT) * rowm
         feat_node = out[..., :V].reshape(N, L, H * V)
         aggr = (out[..., V:V + 3 * PV].reshape(N, L, H, 3, PV)
@@ -140,7 +163,9 @@ class GABlock(nn.Module):
 
 
 class GAEncoder(nn.Module):
-    """Stack of GABlocks (``blocks.{i}``)."""
+    """Stack of GABlocks (``blocks.{i}``). ``pair_biases``: the blocks'
+    hoisted biases (:func:`precompute_encoder_pair_biases`); ``fuse_p2n``
+    selects the blocks' sampling form."""
 
     def __init__(self, node_feat_dim: int, pair_feat_dim: int,
                  num_layers: int, dtype=torch.float32, **block_opt):
@@ -150,10 +175,12 @@ class GAEncoder(nn.Module):
             for _ in range(num_layers)])
 
     def forward(self, R, t, res_feat, pair_feat, mask, reps: int = 1,
-                attention=None):
-        for block in self.blocks:
-            res_feat = block(R, t, res_feat, pair_feat, mask, reps=reps,
-                             attention=attention)
+                attention=None, pair_biases=None, fuse_p2n: bool = False):
+        for i, block in enumerate(self.blocks):
+            res_feat = block(
+                R, t, res_feat, pair_feat, mask, reps=reps,
+                attention=attention, fuse_p2n=fuse_p2n,
+                pair_bias=None if pair_biases is None else pair_biases[i])
         return res_feat
 
 

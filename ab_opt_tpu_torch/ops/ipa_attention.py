@@ -1,10 +1,11 @@
-"""IPA attention forward (K2) and backward (K3): the Hopper kernels, their
-wrappers, their plain PyTorch versions and the autograd function that joins
-them for training.
+"""IPA attention forward (K2), backward (K3) and the sampling forward with
+the pair aggregation (K4): the Hopper kernels, their wrappers, their plain
+PyTorch versions and the autograd function that joins K2/K3 for training.
 
 Counterpart of ``ab_opt_tpu/ops/ipa_pallas.py``: ``_attention_fwd_call``
-(``_fwd_kernel``), ``_attention_bwd_call`` (``_bwd_kernel``), the custom VJP
-of ``_fused_attention`` and ``p2n_aggregate``. The kernel source is
+(``_fwd_kernel``), ``_attention_bwd_call`` (``_bwd_kernel``),
+``_attention_fwd_p2n_call`` (``_fwd_p2n_kernel``), the custom VJP of
+``_fused_attention`` and ``p2n_aggregate``. The kernel source is
 ``csrc/ipa_attention.cu``, compiled at first use (see :mod:`.build`).
 
 The JAX layout at every public function, so tests feed both the same arrays
@@ -15,14 +16,18 @@ The JAX layout at every public function, so tests feed both the same arrays
 * ``bias`` (N // reps, H, L, L): pair bias, pre-scaled, column mask folded
   in; trajectory n reads its complex's block n // reps;
 * forward outputs ``out`` (N, L, H*64) and ``alphas`` (N, H, L, L), in the
-  input dtype.
+  input dtype;
+* K4: ``z`` (N // reps, L, L, Cz) per complex, outputs ``out`` and ``p2n``
+  (N, L, H, Cz) in the input dtype, no alphas.
 
-:func:`ipa_attention_fwd` and :func:`ipa_attention_bwd` dispatch on the
-device of their input: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel (float32 or bfloat16, L a multiple of 16 up to 512) or
-raises. There is no fallback. Counters: ``ipa_attention_fwd.launches``,
-``ipa_attention_bwd.launches`` (one per call, whatever the number of
-internal launches), and ``.calls`` on the two plain versions.
+:func:`ipa_attention_fwd`, :func:`ipa_attention_bwd` and
+:func:`ipa_attention_fwd_p2n` dispatch on the device of their input: a CPU
+tensor takes the plain version, a CUDA tensor launches the kernel (float32
+or bfloat16, L a multiple of 16 up to 512) or raises. There is no
+fallback. K4 is forward-only, as on the TPU: a tensor that requires a
+gradient raises on any device. Counters: ``.launches`` on the three
+wrappers (one per call, whatever the number of internal launches), and
+``.calls`` on the plain versions.
 """
 from __future__ import annotations
 
@@ -35,6 +40,8 @@ from . import build
 
 SLOT = 64       # per-head width of qa / ka / vvp
 MAX_L = 512
+P2N_MAX_HEADS = 16     # K4: H * Cz <= 1024 outputs per query row
+P2N_MAX_CZ = 64
 _SRC = build.CSRC_DIR / 'ipa_attention.cu'
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -42,21 +49,46 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # ------------------------------------------------------------ plain versions
 
 
-def ipa_attention_fwd_reference(qa, ka, vvp, bias, reps: int = 1):
-    """softmax(qa.ka + bias[n // reps]) and alpha.vvp in plain PyTorch:
-    logits and softmax in f32, alpha rounded to the input dtype before the
-    value product (as the TPU kernel does). Returns (out, alphas)."""
-    ipa_attention_fwd_reference.calls += 1
+def _heads(a):
+    N, L, HD = a.shape
+    return a.reshape(N, L, HD // SLOT, SLOT).to(torch.float32)
+
+
+def _attention_reference(qa, ka, vvp, bias, reps: int):
+    """(out, alphas) of the forward: logits and softmax in f32, alpha
+    rounded to the input dtype before the value product (as the TPU kernel
+    does)."""
     dt, f32 = qa.dtype, torch.float32
     N, L, HD = qa.shape
     H = HD // SLOT
-    heads = lambda a: a.reshape(N, L, H, SLOT).to(f32)
-    logits = torch.einsum('nihd,njhd->nhij', heads(qa), heads(ka))
+    logits = torch.einsum('nihd,njhd->nhij', _heads(qa), _heads(ka))
     logits = (logits.reshape(N // reps, reps, H, L, L)
               + bias.to(f32)[:, None]).reshape(N, H, L, L)
     alphas = torch.softmax(logits, dim=-1).to(dt)
-    out = torch.einsum('nhij,njhd->nihd', alphas.to(f32), heads(vvp))
+    out = torch.einsum('nhij,njhd->nihd', alphas.to(f32), _heads(vvp))
     return out.reshape(N, L, HD).to(dt), alphas
+
+
+def ipa_attention_fwd_reference(qa, ka, vvp, bias, reps: int = 1):
+    """softmax(qa.ka + bias[n // reps]) and alpha.vvp in plain PyTorch.
+    Returns (out, alphas)."""
+    ipa_attention_fwd_reference.calls += 1
+    return _attention_reference(qa, ka, vvp, bias, reps)
+
+
+def ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z, reps: int = 1):
+    """K4's function in plain PyTorch: the forward's ``out`` and
+    p2n[n, i, h] = sum_j alpha[n, h, i, j] z[n // reps, i, j], both products
+    from the one alpha rounded to the input dtype, accumulated in f32.
+    Returns (out (N, L, H*64), p2n (N, L, H, Cz))."""
+    ipa_attention_fwd_p2n_reference.calls += 1
+    out, alphas = _attention_reference(qa, ka, vvp, bias, reps)
+    N, H, L, _ = alphas.shape
+    Cz = z.shape[-1]
+    p2n = torch.einsum('crhij,cijd->crihd',
+                       alphas.to(torch.float32).reshape(N // reps, reps, H, L, L),
+                       z.to(torch.float32))
+    return out, p2n.reshape(N, L, H, Cz).to(qa.dtype)
 
 
 def ipa_attention_bwd_reference(qa, ka, vvp, alphas, dout, dalphas):
@@ -66,22 +98,21 @@ def ipa_attention_bwd_reference(qa, ka, vvp, alphas, dout, dalphas):
     ipa_attention_bwd_reference.calls += 1
     dt, f32 = qa.dtype, torch.float32
     N, L, HD = qa.shape
-    H = HD // SLOT
-    heads = lambda a: a.reshape(N, L, H, SLOT).to(f32)
     alpha = alphas.to(f32)
-    do = heads(dout)
-    dal = torch.einsum('nihd,njhd->nhij', do, heads(vvp)) + dalphas.to(f32)
+    do = _heads(dout)
+    dal = torch.einsum('nihd,njhd->nhij', do, _heads(vvp)) + dalphas.to(f32)
     tmp = dal * alpha
     dlog = tmp - alpha * tmp.sum(-1, keepdim=True)
     flat = lambda a: a.reshape(N, L, HD).to(dt)
-    return (flat(torch.einsum('nhij,njhd->nihd', dlog, heads(ka))),
-            flat(torch.einsum('nhij,nihd->njhd', dlog, heads(qa))),
+    return (flat(torch.einsum('nhij,njhd->nihd', dlog, _heads(ka))),
+            flat(torch.einsum('nhij,nihd->njhd', dlog, _heads(qa))),
             flat(torch.einsum('nhij,nihd->njhd', alpha, do)),
             dlog.to(dt))
 
 
 ipa_attention_fwd_reference.calls = 0
 ipa_attention_bwd_reference.calls = 0
+ipa_attention_fwd_p2n_reference.calls = 0
 
 
 # ------------------------------------------------------------ the kernels
@@ -96,6 +127,10 @@ def _library():
     lib.ipa_attention_fwd.restype = I
     lib.ipa_attention_bwd.argtypes = [P] * 11 + [I] * 4 + [P]
     lib.ipa_attention_bwd.restype = I
+    lib.ipa_attention_fwd_p2n.argtypes = [P] * 7 + [I] * 6 + [P]
+    lib.ipa_attention_fwd_p2n.restype = I
+    lib.ipa_attention_fwd_p2n_tile.argtypes = [I] * 4
+    lib.ipa_attention_fwd_p2n_tile.restype = I
     lib.ipa_attention_error_string.argtypes = [I]
     lib.ipa_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -121,6 +156,8 @@ def _check(named, reps: int = 1):
     H = HD // SLOT
     shapes = {'bias': (N // reps, H, L, L), 'alphas': (N, H, L, L),
               'dalphas': (N, H, L, L)}
+    if 'z' in named:
+        shapes['z'] = (N // reps, L, L, named['z'].shape[-1])
     for name, a in named.items():
         want = shapes.get(name, (N, L, HD))
         _require(tuple(a.shape) == want,
@@ -185,8 +222,42 @@ def ipa_attention_bwd(qa, ka, vvp, alphas, dout, dalphas):
     return dqa, dka, dvvp, dbias
 
 
+def ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps: int = 1):
+    """K4: (out, p2n), for sampling. Raises if any input requires a
+    gradient (there is no backward). A CPU ``qa`` takes the plain version;
+    any other device launches the kernel (one count on ``.launches``) or
+    raises."""
+    named = {'qa': qa, 'ka': ka, 'vvp': vvp, 'bias': bias, 'z': z}
+    for name, a in named.items():
+        _require(not a.requires_grad,
+                 f'{name} requires a gradient: the p2n forward has no '
+                 'backward (sampling only)')
+    if qa.device.type == 'cpu':
+        return ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z, reps)
+    _require(qa.dim() == 3 and z.dim() == 4,
+             'qa must be (N, L, H*64) and z (N // reps, L, L, Cz)')
+    H, Cz = qa.shape[-1] // SLOT, z.shape[-1]
+    _require(H <= P2N_MAX_HEADS, f'H={H} (at most {P2N_MAX_HEADS} heads)')
+    _require(Cz % 4 == 0 and 4 <= Cz <= P2N_MAX_CZ,
+             f'Cz={Cz} (a multiple of 4, at most {P2N_MAX_CZ})')
+    N, L, H = _check(named, reps)
+    lib = _library()
+    with torch.cuda.device(qa.device):
+        out = torch.empty_like(qa)
+        p2n = torch.empty((N, L, H, Cz), dtype=qa.dtype, device=qa.device)
+        err = lib.ipa_attention_fwd_p2n(
+            qa.data_ptr(), ka.data_ptr(), vvp.data_ptr(), bias.data_ptr(),
+            z.data_ptr(), out.data_ptr(), p2n.data_ptr(), N, L, H, Cz, reps,
+            _DTYPES[qa.dtype],
+            torch.cuda.current_stream(qa.device).cuda_stream)
+    _raise_on(err, 'ipa_attention_fwd_p2n')
+    ipa_attention_fwd_p2n.launches += 1
+    return out, p2n
+
+
 ipa_attention_fwd.launches = 0
 ipa_attention_bwd.launches = 0
+ipa_attention_fwd_p2n.launches = 0
 
 
 def reset_counts():
@@ -194,8 +265,10 @@ def reset_counts():
     counts."""
     ipa_attention_fwd.launches = 0
     ipa_attention_bwd.launches = 0
+    ipa_attention_fwd_p2n.launches = 0
     ipa_attention_fwd_reference.calls = 0
     ipa_attention_bwd_reference.calls = 0
+    ipa_attention_fwd_p2n_reference.calls = 0
 
 
 # ------------------------------------------------------------ autograd

@@ -4,7 +4,7 @@ Phases, each fatal on failure:
   1. device: require CUDA, print the card's name and power limit, turn
      TF32 off;
   2. build: compile every kernel source in ab_opt_tpu_torch/csrc (the
-     GABlock kernel K1, the IPA attention kernels K2/K3), one nvcc per
+     GABlock kernel K1, the IPA attention kernels K2/K3/K4), one nvcc per
      source, all started together;
   3. K1 vs plain: the GABlock kernel against its plain PyTorch version
      at the sampler's widths (F=128, Cz=64, H=12, L=128), bf16, atol/rtol
@@ -33,12 +33,27 @@ Phases, each fatal on failure:
      through Trainer.train, whose finite-loss guard raises on any step
      with a non-finite loss, with exactly 60 K2 and 60 K3 launches (6 a
      step) and no plain call; then the checkpoint it saved is resumed by
-     a fresh Trainer, which takes one more finite step.
+     a fresh Trainer, which takes one more finite step;
+  7. K4 vs plain: the attention forward with in-kernel pair aggregation
+     (out, p2n) against its plain version at (N=256, reps=256, L=128, bf16:
+     each tensor within 1e-2 of |plain| plus 1e-3 of its largest value), at
+     (N=4, reps=2, L=128, 5 padded key columns, f32) and (N=3, reps=3,
+     L=48, f32), both at atol/rtol 1e-3; times of both at the first case;
+  8. the rest of BatchedSampler, on phase 5's model and complex: one
+     denoiser evaluation of the ipa_impl='pallas' model (the eager encoder
+     over K4) against the same evaluation through K4's plain version, then
+     four requests: ipa_impl='pallas' at fan-out 256 (exactly 100 x 6 K4
+     launches, no K1 launch), opt_step=64 at fan-out 16 (64 x 6 K1
+     launches), stride=5 at fan-out 256 (20 x 6 K1 launches) and
+     sample_structure=False at fan-out 32 (100 x 6 K1 launches, the native
+     frames and CA positions unchanged); each with finite outputs, the
+     context residues unchanged and no plain call.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds.
 
 Run from the repository root: python3 chip_smoke.py
 """
+import dataclasses
 import json
 import math
 import shutil
@@ -59,6 +74,7 @@ ATTN_BF16_RTOL = 1e-2
 ATTN_BF16_ATOL_FRAC = 1e-3
 ATTN_F32_TOL = 1e-3
 TRAIN_BATCH = 16
+P2N_FANOUT = 256          # K4's timed case and the ipa_impl='pallas' request
 TIMED_STEPS = 10
 # Kernel vs plain training step. First measured on an H100 (bf16, the
 # slice's step): losses within 5.7e-5 relative, gradient cosine 0.99975,
@@ -269,14 +285,14 @@ def phase_attention(device):
     return res
 
 
-def _denoiser_check(model, batch, reps=4):
+def _denoiser_check(model, batch, plain, reps=4):
     """One denoiser evaluation of the slice's model at full width, with the
-    encoder through the kernel and through the plain version: same weights,
-    same inputs. Returns (max |d eps_pos|, max |d R_next|, max |d c|)."""
+    encoder through the kernel and through the plain version (``plain``:
+    the keyword of ``DiffAb.prepare_denoiser`` that swaps the route's
+    kernel wrapper for its plain version): same weights, same inputs.
+    Returns (max |d eps_pos|, max |d R_next|, max |d c|)."""
     import torch
     from ab_opt_tpu_torch.geometry import rotation_to_so3vec
-    from ab_opt_tpu_torch.ops.gablock import (gablock_layer,
-                                              gablock_layer_reference)
     with torch.no_grad():
         res_feat, pair_feat, R0, p0 = model.encode(batch, True, True)
         rep = lambda a: a.repeat_interleave(reps, 0)
@@ -286,8 +302,8 @@ def _denoiser_check(model, batch, reps=4):
         v, p = rotation_to_so3vec(R0), model.normalize_position(p0)
         beta = torch.full((aa.shape[0],), 0.05, device=aa.device)
         outs = []
-        for layer in (gablock_layer, gablock_layer_reference):
-            enc, hw = model.prepare_denoiser(pair_feat, mres, reps, layer)
+        for kw in ({}, plain):
+            enc, hw = model.prepare_denoiser(pair_feat, mres, reps, **kw)
             outs.append(model.eps_net(v, p, aa, res_feat, pair_feat, beta,
                                       gen, mres, reps=reps, encoder_fn=enc,
                                       head_weights=hw))
@@ -296,7 +312,8 @@ def _denoiser_check(model, batch, reps=4):
 
 
 def phase_slice(device):
-    """Three sampling requests; returns the kernel launches they made."""
+    """Three sampling requests; returns the kernel launches they made, the
+    model and the complex."""
     import numpy as np
     import torch
     from ab_opt_tpu_torch.models import DiffAb, DiffAbConfig
@@ -310,7 +327,8 @@ def phase_slice(device):
     batch = synthetic_batch(np.random.default_rng(0), N=1, L=L,
                             n_ab=int(L * 0.7), gen_lo=L // 4,
                             gen_hi=L // 4 + 8, device=device)
-    d_pos, d_rot, d_seq = _denoiser_check(model, batch)
+    d_pos, d_rot, d_seq = _denoiser_check(
+        model, batch, {'layer': gablock.gablock_layer_reference})
     print(f'denoiser step, kernel vs plain encoder (reps=4): '
           f'max |d eps_pos|={d_pos:.5f}, max |d R_next|={d_rot:.5f}, '
           f'max |d seq probs|={d_seq:.5f}')
@@ -351,7 +369,7 @@ def phase_slice(device):
         if not (finite and shapes_ok and ctx_same and launches == expected
                 and plain == 0):
             raise SystemExit(f'sampling request {i + 1} failed its checks')
-    return total
+    return total, model, batch
 
 
 def _train_draws(N, Ln, device, seed):
@@ -403,7 +421,6 @@ def _step_vs_plain(trainer, batch):
 def phase_train(device):
     """The training slice (see the module docstring, phase 6). Returns the
     K2 and K3 launches of the timed run."""
-    import dataclasses
     import itertools
 
     import numpy as np
@@ -479,6 +496,151 @@ def phase_train(device):
     return launches
 
 
+def phase_p2n(device):
+    """K4 vs its plain version, then their times at the sampler's fan-out
+    (see the module docstring, phase 7). Returns max_abs_err, ms,
+    plain_ms, bound_ms and bound_by."""
+    import torch
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    torch.set_grad_enabled(False)
+    res = {'max_abs_err': 0.0}
+    cases = ((P2N_FANOUT, L, P2N_FANOUT, torch.bfloat16, 0),
+             (4, L, 2, torch.float32, 5),
+             (3, 48, 3, torch.float32, 0))
+    for N, Ln, reps, dtype, n_pad in cases:
+        qa, ka, vvp, bias, _, _ = _attention_case(
+            N, Ln, reps, dtype, n_pad, seed=N + Ln + 1, device=device)
+        g = torch.Generator(device=device).manual_seed(N + Ln)
+        z = torch.randn(N // reps, Ln, Ln, 64, generator=g,
+                        device=device).to(dtype).contiguous()
+        kern = lambda: ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps)
+        plain = lambda: ia.ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias,
+                                                           z, reps)
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        errs = []
+        for name, a, b in zip(('out', 'p2n'), got, ref):
+            b = b.float()
+            err = (a.float() - b).abs()
+            if dtype == torch.bfloat16:
+                atol = ATTN_BF16_ATOL_FRAC * float(b.abs().max())
+                limit = atol + ATTN_BF16_RTOL * b.abs()
+            else:
+                atol = ATTN_F32_TOL
+                limit = ATTN_F32_TOL + ATTN_F32_TOL * b.abs()
+            ok = bool(torch.isfinite(a).all()) and bool((err <= limit).all())
+            errs.append(f'{name} {float(err.max()):.6f} (atol {atol:.2e})')
+            res['max_abs_err'] = max(res['max_abs_err'], float(err.max()))
+            if not ok:
+                raise SystemExit(f'ipa_attention_fwd_p2n {name} disagrees with '
+                                 f'its plain version (N={N}, L={Ln}, {dtype})')
+        tile = ia._library().ipa_attention_fwd_p2n_tile(
+            Ln, bias.shape[1], z.shape[-1], 0 if dtype == torch.float32 else 1)
+        tiles = (f'{-tile} query rows a block, tensor cores' if tile < 0
+                 else f'{tile} query rows a block, CUDA cores')
+        print(f'K4 vs plain (N={N}, reps={reps}, L={Ln}, padded key columns='
+              f'{n_pad}, {str(dtype)[6:]}, {tiles}): '
+              f'max_abs_err ' + ', '.join(errs))
+        if dtype != torch.bfloat16:
+            continue
+        H, Cz = bias.shape[1], z.shape[-1]
+        bound = _bound(2 * N * H * Ln * Ln * (64 + 64 + Cz),
+                       _nbytes(qa, ka, vvp, bias, z, *got))
+        k_ms = _cuda_ms(kern, 20)
+        p_ms = _cuda_ms(plain, 5)
+        k_ms2 = _cuda_ms(kern, 20)
+        res.update(ms=min(k_ms, k_ms2), plain_ms=p_ms, bound_ms=bound[0],
+                   bound_by=bound[1])
+        print(f'K4 ms at N={N}, reps={reps}, L={Ln}, H={H}, Cz={Cz}, bf16: '
+              f'kernel {k_ms:.4f} / {k_ms2:.4f}, plain {p_ms:.4f}, bound '
+              f'{bound[0]:.4f} ({bound[1]})')
+    return res
+
+
+def phase_paths(model, batch):
+    """The rest of BatchedSampler (see the module docstring, phase 8).
+    Returns K4's launches in the four requests."""
+    import numpy as np
+    import torch
+    from ab_opt_tpu_torch.geometry import (construct_3d_basis,
+                                           rotation_to_so3vec)
+    from ab_opt_tpu_torch.models import DiffAb
+    from ab_opt_tpu_torch.ops import gablock
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.runners.design import BatchedSampler
+
+    cfg = model.cfg
+    pallas = DiffAb(dataclasses.replace(cfg, ipa_impl='pallas'))
+    pallas.load_state_dict(model.state_dict())
+    pallas.to(batch['aa'].device)
+    d_pos, d_rot, d_seq = _denoiser_check(
+        pallas, batch, {'attention': ia.ipa_attention_fwd_p2n_reference})
+    print(f"denoiser step, ipa_impl='pallas', K4 vs plain attention (reps=4):"
+          f' max |d eps_pos|={d_pos:.5f}, max |d R_next|={d_rot:.5f}, '
+          f'max |d seq probs|={d_seq:.5f}')
+    if not (d_pos < DENOISER_TOL and d_rot < DENOISER_TOL
+            and d_seq < DENOISER_TOL):
+        raise SystemExit('denoiser through K4 disagrees with the plain path')
+
+    T, layers = cfg.num_steps, cfg.num_layers
+    requests = (   # (name, sampler, fan-out, K1 launches, K4 launches)
+        ("ipa_impl='pallas'", BatchedSampler(pallas), P2N_FANOUT, 0,
+         T * layers),
+        ('opt_step=64', BatchedSampler(model, opt_step=64), 16, 64 * layers,
+         0),
+        ('stride=5', BatchedSampler(model, stride=5), 256,
+         len(range(T, 0, -5)) * layers, 0),
+        ('sample_structure=False', BatchedSampler(model,
+                                                  sample_structure=False),
+         32, T * layers, 0))
+    ctx = ~batch['generate_flag'][0].cpu().numpy()
+    pos = batch['pos_heavyatom'][0]
+    pos_ctx = pos.cpu().numpy()[ctx]
+    aa_ctx = batch['aa'][0].cpu().numpy()[ctx]
+    native_v = rotation_to_so3vec(construct_3d_basis(
+        pos[None, :, 1], pos[None, :, 2], pos[None, :, 0]))[0].cpu().numpy()
+    native_ca = pos[:, 1].cpu().numpy()
+    plain_calls = lambda: (gablock.gablock_layer_reference.calls
+                           + ia.ipa_attention_fwd_reference.calls
+                           + ia.ipa_attention_fwd_p2n_reference.calls)
+    gablock.reset_counts()
+    ia.reset_counts()
+    for i, (name, sampler, reps, want_k1, want_k4) in enumerate(requests):
+        k1 = gablock.gablock_layer.launches
+        k4 = ia.ipa_attention_fwd_p2n.launches
+        plain = plain_calls()
+        t0 = time.perf_counter()
+        out = sampler(batch, seed=200 + i, num_replicas=reps)
+        dt = time.perf_counter() - t0
+        k1 = gablock.gablock_layer.launches - k1
+        k4 = ia.ipa_attention_fwd_p2n.launches - k4
+        plain = plain_calls() - plain
+        finite = all(np.isfinite(out[k]).all()
+                     for k in ('v', 'p', 'pos_atom_new', 'prmsd',
+                               'perplexity'))
+        shapes_ok = (out['p'].shape == (reps, L, 3)
+                     and out['pos_atom_new'].shape == (reps, L, 15, 3))
+        ctx_same = bool((out['pos_atom_new'][:, ctx] == pos_ctx).all()
+                        and (out['s'][:, ctx] == aa_ctx).all())
+        frozen = ''
+        frozen_ok = True
+        if not sampler.sample_structure:
+            d_p = float(np.abs(out['p'] - native_ca).max())
+            d_v = float(np.abs(out['v'] - native_v).max())
+            frozen_ok = d_p <= 1e-3 and d_v <= 1e-5
+            frozen = (f', structure frozen: max |d p|={d_p:.2e} A, '
+                      f'max |d v|={d_v:.2e}')
+        print(f'request {i + 1} ({name}): fan-out {reps}: {dt:.3f} s, '
+              f'{reps / dt:.3f} samples/s, K1 launches {k1}, K4 launches '
+              f'{k4}, plain calls {plain}, finite={finite}, '
+              f'shapes_ok={shapes_ok}, context_unchanged={ctx_same}{frozen}')
+        if not (finite and shapes_ok and ctx_same and frozen_ok
+                and (k1, k4, plain) == (want_k1, want_k4, 0)):
+            raise SystemExit(f'request {i + 1} ({name}) failed its checks')
+    return ia.ipa_attention_fwd_p2n.launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -504,8 +666,10 @@ def main():
 
     max_err, times, bounds = phase_kernel(device)
     attn = phase_attention(device)
-    launches = phase_slice(device)
+    launches, model, batch = phase_slice(device)
     k2, k3 = phase_train(device)
+    p2n = phase_p2n(device)
+    k4 = phase_paths(model, batch)
 
     kernels = [dict(
         name='gablock', route='cuda', source='ab_opt_tpu_torch/csrc/gablock.cu',
@@ -519,6 +683,11 @@ def main():
             source='ab_opt_tpu_torch/csrc/ipa_attention.cu',
             replaces=f'ab_opt_tpu/ops/ipa_pallas.py:{line}', launches=n,
             **attn[key], library_ms=None))
+    kernels.append(dict(
+        name='ipa_attention_fwd_p2n', route='cuda',
+        source='ab_opt_tpu_torch/csrc/ipa_attention.cu',
+        replaces='ab_opt_tpu/ops/ipa_pallas.py:142', launches=k4, **p2n,
+        library_ms=None))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""The GABlock kernel (K1) and the IPA attention kernels (K2, K3) against
-their plain versions, on an NVIDIA GPU (marker
+"""The GABlock kernel (K1) and the IPA attention kernels (K2, K3, K4)
+against their plain versions, on an NVIDIA GPU (marker
 ``cuda``; skips without a card). Imports no JAX, so it also runs where only
 the port is installed:
 
@@ -110,3 +110,39 @@ def test_cuda_tensors_never_reach_the_plain_attention():
     assert ia.ipa_attention_bwd_reference.calls == 0
     assert all(torch.isfinite(a.grad).all() for a in leaves)
     assert bias.grad.shape == bias.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('L,Nc,reps', [(16, 2, 1), (48, 1, 3), (128, 2, 2),
+                                       (256, 1, 2), (512, 1, 2)])
+def test_p2n_kernel_matches_plain_on_card(L, Nc, reps, dtype):
+    """K4 (out, p2n) against its plain version at the IPA widths (H=12,
+    Cz=64), reps 1, 2 and 3, with padded key columns; at L=16 and 48 the
+    float32 kernel's 32-row query tile runs past L (padded rows); bf16 up
+    to L=256 takes the tensor-core variant, L=512 the CUDA-core one:
+    atol/rtol 1e-3 in float32; in bf16 both round each output once, rtol
+    1e-2 and atol 1e-3 of the tensor's largest value."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    dev = torch.device('cuda')
+    qa, ka, vvp, bias, _, _ = _attention_case(L, Nc, reps, dtype, dev,
+                                              seed=L + reps)
+    g = torch.Generator().manual_seed(L)
+    z = torch.randn(Nc, L, L, 64, generator=g).to(dev, dtype).contiguous()
+    ia.reset_counts()
+    got = ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps)
+    torch.cuda.synchronize()
+    assert ia.ipa_attention_fwd_p2n.launches == 1
+    ref = ia.ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z, reps)
+    for name, a, b in zip(('out', 'p2n'), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        b = b.float()
+        if dtype == torch.float32:
+            atol = rtol = 1e-3
+        else:
+            atol, rtol = 1e-3 * float(b.abs().max()), 1e-2
+        torch.testing.assert_close(a.float(), b, atol=atol, rtol=rtol,
+                                   msg=name)

@@ -17,7 +17,11 @@ What stays fixed across steps is built once per call: the per-layer pair
 biases, the GABlock kernel weight bundles and the stacked head weights.
 ``DiffAbConfig.ipa_impl`` picks the encoder's route, as in the JAX
 package: ``'auto'`` and ``'pallas_fused'`` run every layer through
-:func:`ab_opt_tpu_torch.ops.gablock.gablock_layer` (K1); ``'pallas'`` runs
+:func:`ab_opt_tpu_torch.ops.gablock.gablock_layer` (K1), or, with the
+environment variable ``AB_OPT_FUSED_CHAIN`` set to anything but ``'0'``
+and more than one layer, the whole encoder of a step through one
+:func:`ab_opt_tpu_torch.ops.gablock.fused_encoder_chained` call (K5);
+``'pallas'`` runs
 the eager GAEncoder in its sampling form, whose attention is
 :func:`ab_opt_tpu_torch.ops.ipa_attention.ipa_attention_fwd_p2n` (K4). Each
 is the Hopper kernel for CUDA tensors, its plain version for CPU tensors.
@@ -25,6 +29,7 @@ is the Hopper kernel for CUDA tensors, its plain version for CPU tensors.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -37,14 +42,16 @@ from ..geometry import (construct_3d_basis, random_uniform_so3,
 from ..nn import EpsilonNet, PairEmbedding, ResidueEmbedding
 from ..nn.epsilon_net import precompute_head_weights
 from ..nn.ipa import precompute_encoder_pair_biases
-from ..ops.gablock import build_encoder_weights, gablock_layer
+from ..ops.gablock import (build_encoder_weights, fused_encoder_chained,
+                           gablock_layer, stack_encoder_weights)
 from ..ops.ipa_attention import ipa_attention_fwd_p2n
 from . import losses as Ls
 from .losses import compute_prmsd, sequence_perplexity
 
 
-# The sampler's encoder routes: the per-layer GABlock kernel (K1) for
-# 'auto' and 'pallas_fused', the eager GAEncoder over the attention kernel
+# The sampler's encoder routes: the per-layer GABlock kernel (K1), or the
+# chained whole-encoder kernel (K5) under AB_OPT_FUSED_CHAIN, for 'auto'
+# and 'pallas_fused'; the eager GAEncoder over the attention kernel
 # with in-kernel pair aggregation (K4) for 'pallas'.
 IPA_IMPLS = ('auto', 'pallas_fused', 'pallas')
 
@@ -364,15 +371,18 @@ class DiffAb(DiffAbNet):
             1, keep_traj)
 
     def prepare_denoiser(self, pair_feat, mask_res, reps: int = 1,
-                         layer=gablock_layer, attention=ipa_attention_fwd_p2n):
+                         layer=gablock_layer, attention=ipa_attention_fwd_p2n,
+                         chain=fused_encoder_chained):
         """The step-invariant operands of the denoiser, built once per
         sampling call: returns ``(encoder_fn, head_weights)`` for
         :meth:`EpsilonNet.forward`. ``encoder_fn`` runs the encoder by the
-        config's route with the per-layer pair biases (and, for K1, weight
-        bundles) closed over: every GABlock layer through ``layer`` (the K1
-        wrapper), or the eager GAEncoder in its sampling form with
-        ``attention`` (the K4 wrapper). Either may be given its plain
-        version, for a side-by-side check."""
+        config's route with the per-layer pair biases (and, for K1 and K5,
+        weight bundles) closed over: every GABlock layer through ``layer``
+        (the K1 wrapper), the whole stack in one ``chain`` call (the K5
+        wrapper) when ``AB_OPT_FUSED_CHAIN`` is set to anything but '0' and
+        there is more than one layer, as in the JAX package, or the eager
+        GAEncoder in its sampling form with ``attention`` (the K4 wrapper).
+        Each may be given its plain version, for a side-by-side check."""
         dt = self.cfg.compute_dtype
         encoder = self.eps_net.encoder
         biases = precompute_encoder_pair_biases(encoder, pair_feat,
@@ -388,6 +398,19 @@ class DiffAb(DiffAbNet):
 
         bundles = build_encoder_weights(encoder, dt)
         mask_f = mask_res.float().contiguous()
+        num_layers = self.cfg.num_layers
+        if (os.environ.get('AB_OPT_FUSED_CHAIN', '0') != '0'
+                and num_layers > 1):
+            stacked = stack_encoder_weights(bundles)
+            # (Nc, NL, H, L, L) in the compute dtype: bf16 for the kernel.
+            bias_st = torch.stack(biases, dim=1).contiguous()
+
+            def encoder_fn(R9, t, x, mask):
+                return chain(stacked, num_layers, R9.float().contiguous(),
+                             t.float().contiguous(), x.float().contiguous(),
+                             z, bias_st, mask_f, reps)
+
+            return encoder_fn, head_weights
 
         def encoder_fn(R9, t, x, mask):
             x = x.float().contiguous()

@@ -32,21 +32,22 @@ def nvcc_path() -> str:
     return path
 
 
-def library_path(src: Path, build_dir: Path) -> Path:
-    digest = hashlib.sha256(Path(src).read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+def library_path(src: Path, build_dir: Path, flags=()) -> Path:
+    digest = hashlib.sha256(Path(src).read_bytes() + ' '.join(
+        NVCC_FLAGS + tuple(flags)).encode()).hexdigest()
     return Path(build_dir) / f'{Path(src).stem}-{digest[:16]}.so'
 
 
-def build_sources(sources, build_dir: Path = BUILD_DIR) -> dict:
+def build_sources(sources, build_dir: Path = BUILD_DIR, flags=()) -> dict:
     """Compile every source that is not built yet, one ``nvcc`` per source,
-    all started together. Returns ``{str(src): {'path', 'seconds', 'log'}}``
+    all started together; ``flags`` are added to every command (a profiling
+    build's defines). Returns ``{str(src): {'path', 'seconds', 'log'}}``
     (seconds 0 and an empty log for a library that was already built);
     raises with nvcc's output if any compile fails."""
     results, running = {}, []
     t0 = time.perf_counter()
     for src in sources:
-        lib = library_path(src, build_dir)
+        lib = library_path(src, build_dir, flags)
         if lib.exists():
             results[str(src)] = {'path': str(lib), 'seconds': 0.0, 'log': ''}
             continue
@@ -54,7 +55,8 @@ def build_sources(sources, build_dir: Path = BUILD_DIR) -> dict:
         Path(build_dir).mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=build_dir)
         os.close(fd)
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, '-o', tmp, str(src)],
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, '-o', tmp,
+                                 str(src)],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((src, lib, tmp, proc))

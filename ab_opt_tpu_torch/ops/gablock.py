@@ -1,13 +1,17 @@
-"""One GABlock (IPA block) forward: the Hopper kernel, its wrapper and its
-plain PyTorch version.
+"""The GABlock (IPA block) forward: one layer (K1) or the whole encoder in
+one launch (K5), the Hopper kernels, their wrappers and their plain
+PyTorch versions.
 
 Counterpart of ``ab_opt_tpu/ops/gablock_pallas.py`` (``_gablock_kernel``,
-``fused_gablock_layer``, ``build_gablock_weights``). The kernel source is
-``csrc/gablock.cu``; it is compiled with ``nvcc`` for ``sm_90a`` into
-``_build/`` at first use and loaded with ``ctypes``.
+``fused_gablock_layer``, ``build_gablock_weights``; ``_encoder_chain_kernel``,
+``fused_encoder_chained``, ``stack_encoder_weights``). The kernel sources
+are ``csrc/gablock.cu`` and ``csrc/gablock_chain.cu``; each is compiled
+with ``nvcc`` for ``sm_90a`` into ``_build/`` at first use and loaded with
+``ctypes``.
 
-:func:`gablock_layer` dispatches on the device of its input: a CPU tensor
-takes :func:`gablock_layer_reference` (the same function in plain PyTorch),
+:func:`gablock_layer` and :func:`fused_encoder_chained` dispatch on the
+device of their input: a CPU tensor takes the plain version
+(:func:`gablock_layer_reference`, :func:`fused_encoder_chained_reference`),
 a CUDA tensor launches the kernel or raises. There is no fallback.
 
 Weight bundle (:func:`build_gablock_weights`), built once per sampling call
@@ -24,7 +28,9 @@ from a :class:`ab_opt_tpu_torch.nn.ipa.GABlock`:
 
 Per-complex inputs under trajectory fan-out (row n belongs to complex
 n // reps): ``z`` (Nc, L, L, Cz) and ``bias`` (Nc, H, L, L) from
-:func:`ab_opt_tpu_torch.nn.ipa.precompute_pair_bias`.
+:func:`ab_opt_tpu_torch.nn.ipa.precompute_pair_bias`. The chain takes the
+bundles stacked along a leading layer axis (:func:`stack_encoder_weights`)
+and the biases stacked as (Nc, NL, H, L, L).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import torch
 from . import build
 
 _SRC = build.CSRC_DIR / 'gablock.cu'
+_CHAIN_SRC = build.CSRC_DIR / 'gablock_chain.cu'
 _LN_EPS = 1e-10
 
 
@@ -103,6 +110,19 @@ def build_encoder_weights(encoder, dtype=torch.bfloat16) -> list:
     return [build_gablock_weights(b, dtype) for b in encoder.blocks]
 
 
+def stack_encoder_weights(bundles) -> dict:
+    """Stack per-layer bundles along a leading layer axis for the chained
+    whole-encoder kernel (:func:`fused_encoder_chained`); ``dims`` is kept."""
+    stacked = {k: torch.stack([wb[k] for wb in bundles]).contiguous()
+               for k in bundles[0] if k != 'dims'}
+    stacked['dims'] = bundles[0]['dims']
+    return stacked
+
+
+def _layer_bundle(stacked, i: int) -> dict:
+    return {k: v if k == 'dims' else v[i] for k, v in stacked.items()}
+
+
 # ------------------------------------------------------------ plain version
 
 
@@ -123,6 +143,13 @@ def gablock_layer_reference(x, R9, t, z, bias, mask, wb, reps: int = 1,
     the module math of :class:`~ab_opt_tpu_torch.nn.ipa.GABlock`.
     """
     gablock_layer_reference.calls += 1
+    return _layer_math(x, R9, t, z, bias, mask, wb, reps, dtype)
+
+
+gablock_layer_reference.calls = 0
+
+
+def _layer_math(x, R9, t, z, bias, mask, wb, reps, dtype):
     dt = dtype or wb['w_proj'].dtype
     f32 = torch.float32
     rnd = lambda a: a.to(dt).to(f32)
@@ -185,7 +212,21 @@ def gablock_layer_reference(x, R9, t, z, bias, mask, wb, reps: int = 1,
     return _layernorm(x1 + h3, wb['ln2'])
 
 
-gablock_layer_reference.calls = 0
+def fused_encoder_chained_reference(stacked, num_layers: int, R9, t, x, z,
+                                    biases, mask, reps: int = 1):
+    """The chained kernel's function in plain PyTorch: ``num_layers``
+    GABlock layers in sequence, each with the rounding points of
+    :func:`gablock_layer_reference`, layer i on ``stacked``'s slice i and
+    ``biases[:, i]``. ``biases`` (Nc, NL, H, L, L); the rest as
+    :func:`gablock_layer`. Counts its calls, not the per-layer version's."""
+    fused_encoder_chained_reference.calls += 1
+    for i in range(num_layers):
+        x = _layer_math(x, R9, t, z, biases[:, i], mask,
+                        _layer_bundle(stacked, i), reps, None)
+    return x
+
+
+fused_encoder_chained_reference.calls = 0
 
 
 # ------------------------------------------------------------ the kernel
@@ -206,47 +247,68 @@ def _library():
     return lib
 
 
-def _require(cond: bool, msg: str):
+def _require(cond: bool, msg: str, who: str = 'gablock_layer'):
     if not cond:
-        raise ValueError(f'gablock_layer: {msg}')
+        raise ValueError(f'{who}: {msg}')
+
+
+def _expected(x, R9, t, z, mask, wb, reps: int, lead=(),
+              who: str = 'gablock_layer') -> dict:
+    """{name: (tensor, shape, dtype)} of every operand K1 and K5 share, the
+    weights with the leading dims ``lead`` (K5's layer axis); raises on a
+    geometry the kernels do not take."""
+    req = lambda cond, msg: _require(cond, msg, who)
+    H, QK, V, P, PV = wb['dims']
+    req((QK, V, P, PV) == (32, 32, 8, 8),
+        f'head geometry {wb["dims"]} (kernel takes QK=V=32, P=PV=8)')
+    req(H % 4 == 0, f'H={H} must be a multiple of 4')
+    req(x.dim() == 3, 'x must be (N, L, F)')
+    N, L, F = x.shape
+    req(F == 128, f'node width {F} (kernel takes 128)')
+    req(L % 16 == 0 and 16 <= L <= 256, f'L={L} (multiple of 16, <=256)')
+    req(reps >= 1 and N % reps == 0, f'reps={reps} must divide N={N}')
+    Nc = N // reps
+    f32, bf16 = torch.float32, torch.bfloat16
+    ko = H * (64 + V + 7 * PV)
+    pw = wb['w_proj'].shape[-1]
+    req(pw % 128 == 0 and pw >= H * 168, f'w_proj width {pw}')
+    expect = {
+        'x': (x, (N, L, F), f32), 'R9': (R9, (N, L, 9), f32),
+        't': (t, (N, L, 3), f32), 'mask': (mask, (N, L), f32),
+        'z': (z, (Nc, L, L, 64), bf16)}
+    weights = {
+        'w_proj': ((F, pw), bf16), 'w_out': ((ko, F), bf16),
+        'b_out': ((F,), f32), 'coef': ((H,), f32), 'ln1': ((2, F), f32),
+        'ln2': ((2, F), f32), 'w_m1': ((F, F), bf16),
+        'w_m2': ((F, F), bf16), 'w_m3': ((F, F), bf16),
+        'b_m': ((3, F), f32)}
+    for name, (shape, dtype) in weights.items():
+        expect[name] = (wb[name], tuple(lead) + shape, dtype)
+    return expect
+
+
+def _check_tensors(expect: dict, x, who: str = 'gablock_layer'):
+    """Dtype, shape and contiguity of every operand, then its device."""
+    for name, (a, shape, dtype) in expect.items():
+        _require(a.dtype == dtype, f'{name} dtype {a.dtype}, expected {dtype}',
+                 who)
+        _require(tuple(a.shape) == shape,
+                 f'{name} shape {tuple(a.shape)}, expected {shape}', who)
+        _require(a.is_contiguous(), f'{name} must be contiguous', who)
+    for name, (a, _, _) in expect.items():
+        _require(a.is_cuda and a.device == x.device,
+                 f'{name} must lie on the CUDA device of x, not {a.device}',
+                 who)
 
 
 def _check_inputs(x, R9, t, z, bias, mask, wb, reps: int):
     """Raise on anything the kernel does not take (shapes, dtypes,
     contiguity, then device)."""
-    H, QK, V, P, PV = wb['dims']
-    _require((QK, V, P, PV) == (32, 32, 8, 8),
-             f'head geometry {wb["dims"]} (kernel takes QK=V=32, P=PV=8)')
-    _require(H % 4 == 0, f'H={H} must be a multiple of 4')
-    _require(x.dim() == 3, 'x must be (N, L, F)')
-    N, L, F = x.shape
-    _require(F == 128, f'node width {F} (kernel takes 128)')
-    _require(L % 16 == 0 and 16 <= L <= 256, f'L={L} (multiple of 16, <=256)')
-    _require(reps >= 1 and N % reps == 0, f'reps={reps} must divide N={N}')
-    Nc = N // reps
-    f32, bf16 = torch.float32, torch.bfloat16
-    ko = H * (64 + V + 7 * PV)
-    expect = {
-        'x': (x, (N, L, F), f32), 'R9': (R9, (N, L, 9), f32),
-        't': (t, (N, L, 3), f32), 'mask': (mask, (N, L), f32),
-        'z': (z, (Nc, L, L, 64), bf16), 'bias': (bias, (Nc, H, L, L), bf16),
-        'w_out': (wb['w_out'], (ko, F), bf16),
-        'b_out': (wb['b_out'], (F,), f32), 'coef': (wb['coef'], (H,), f32),
-        'ln1': (wb['ln1'], (2, F), f32), 'ln2': (wb['ln2'], (2, F), f32),
-        'w_m1': (wb['w_m1'], (F, F), bf16), 'w_m2': (wb['w_m2'], (F, F), bf16),
-        'w_m3': (wb['w_m3'], (F, F), bf16), 'b_m': (wb['b_m'], (3, F), f32),
-    }
-    pw = wb['w_proj'].shape[-1]
-    expect['w_proj'] = (wb['w_proj'], (F, pw), bf16)
-    _require(pw % 128 == 0 and pw >= H * 168, f'w_proj width {pw}')
-    for name, (a, shape, dtype) in expect.items():
-        _require(a.dtype == dtype, f'{name} dtype {a.dtype}, expected {dtype}')
-        _require(tuple(a.shape) == shape,
-                 f'{name} shape {tuple(a.shape)}, expected {shape}')
-        _require(a.is_contiguous(), f'{name} must be contiguous')
-    for name, (a, _, _) in expect.items():
-        _require(a.is_cuda and a.device == x.device,
-                 f'{name} must lie on the CUDA device of x, not {a.device}')
+    expect = _expected(x, R9, t, z, mask, wb, reps)
+    N, L, _ = x.shape
+    H = wb['dims'][0]
+    expect['bias'] = (bias, (N // reps, H, L, L), torch.bfloat16)
+    _check_tensors(expect, x)
 
 
 def gablock_layer(x, R9, t, z, bias, mask, wb, reps: int = 1):
@@ -287,7 +349,125 @@ def gablock_layer(x, R9, t, z, bias, mask, wb, reps: int = 1):
 gablock_layer.launches = 0
 
 
+# ------------------------------------------------------------ K5, the chain
+
+
+CHAIN_PROFILE_FLAGS = ('-DGABLOCK_CHAIN_PROFILE',)
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_library(flags=()):
+    """K5's library; ``CHAIN_PROFILE_FLAGS`` gives the profiling build
+    (:mod:`ab_opt_tpu_torch.utils.profile_chain`), which also exports
+    ``gablock_chain_phase_cycles``."""
+    lib = ctypes.CDLL(build.build_sources(
+        [_CHAIN_SRC], build.BUILD_DIR, flags)[str(_CHAIN_SRC)]['path'])
+    P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.gablock_chain_layout.argtypes = [I, I, ctypes.POINTER(I),
+                                         ctypes.POINTER(I), ctypes.POINTER(S)]
+    lib.gablock_chain_layout.restype = I
+    lib.gablock_chain_workspace.argtypes = [I, I, I, ctypes.POINTER(S)]
+    lib.gablock_chain_workspace.restype = I
+    lib.gablock_chain_forward.argtypes = ([P] * 7 + [I] + [P] * 2 + [I]
+                                          + [P] * 9 + [S] + [I] * 5 + [P])
+    lib.gablock_chain_forward.restype = I
+    lib.gablock_chain_error_string.argtypes = [I]
+    lib.gablock_chain_error_string.restype = ctypes.c_char_p
+    if flags == CHAIN_PROFILE_FLAGS:
+        lib.gablock_chain_phase_cycles.argtypes = [P, I]
+        lib.gablock_chain_phase_cycles.restype = I
+    return lib
+
+
+def _chain_error(lib, err: int, what: str):
+    msg = lib.gablock_chain_error_string(err).decode()
+    raise RuntimeError(f'fused_encoder_chained: {what} failed: error {err} '
+                       f'({msg})')
+
+
+def chain_layout(L: int, H: int, lib=None) -> dict:
+    """Where K5 keeps x and the feature rows at this L and H (shared memory,
+    or the output rows and the per-block scratch slab) and its shared
+    memory per block; raises ValueError where the tile does not fit."""
+    lib = lib or _chain_library()
+    xs, fs, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_size_t()
+    err = lib.gablock_chain_layout(L, H, ctypes.byref(xs), ctypes.byref(fs),
+                                   ctypes.byref(smem))
+    _require(err == 0, f'L={L}, H={H}: '
+             f'{lib.gablock_chain_error_string(err).decode()}',
+             'fused_encoder_chained')
+    return {'x_in_smem': bool(xs.value), 'feat_in_smem': bool(fs.value),
+            'smem_bytes': smem.value}
+
+
+def fused_encoder_chained(stacked, num_layers: int, R9, t, x, z, biases,
+                          mask, reps: int = 1):
+    """All ``num_layers`` GABlock layers in one launch: x (N, L, F) f32 ->
+    encoded x (N, L, F) f32.
+
+    ``stacked`` from :func:`stack_encoder_weights` (a leading layer axis of
+    ``num_layers``), ``biases`` (Nc, NL, H, L, L) bf16; the rest as
+    :func:`gablock_layer`. A CPU ``x`` takes the plain version; any other
+    device launches the kernel (one count on
+    ``fused_encoder_chained.launches`` per call) or raises.
+    """
+    if x.device.type == 'cpu':
+        return fused_encoder_chained_reference(stacked, num_layers, R9, t, x,
+                                               z, biases, mask, reps)
+    _check_chain_inputs(stacked, num_layers, R9, t, x, z, biases, mask, reps)
+    out = _launch_chain(_chain_library(), stacked, num_layers, R9, t, x, z,
+                        biases, mask, reps)
+    fused_encoder_chained.launches += 1
+    return out
+
+
+fused_encoder_chained.launches = 0
+
+
+def _launch_chain(lib, stacked, num_layers, R9, t, x, z, biases, mask, reps):
+    """One launch of K5 from ``lib`` on checked CUDA inputs."""
+    N, L, F = x.shape
+    H = stacked['dims'][0]
+    chain_layout(L, H, lib)
+    pw, ko = stacked['w_proj'].shape[-1], stacked['w_out'].shape[-2]
+    with torch.cuda.device(x.device):
+        nbytes = ctypes.c_size_t()
+        err = lib.gablock_chain_workspace(N, L, H, ctypes.byref(nbytes))
+        if err != 0:
+            _chain_error(lib, err, 'planning the launch')
+        ws = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
+        out = torch.empty_like(x)
+        ptr = lambda a: a.data_ptr()
+        err = lib.gablock_chain_forward(
+            ptr(x), ptr(R9), ptr(t), ptr(z), ptr(biases), ptr(mask),
+            ptr(stacked['w_proj']), pw, ptr(stacked['coef']),
+            ptr(stacked['w_out']), ko, ptr(stacked['b_out']),
+            ptr(stacked['ln1']), ptr(stacked['w_m1']), ptr(stacked['w_m2']),
+            ptr(stacked['w_m3']), ptr(stacked['b_m']), ptr(stacked['ln2']),
+            ptr(out), ptr(ws), nbytes.value, N, L, H, reps, num_layers,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        _chain_error(lib, err, 'kernel launch')
+    return out
+
+
+def _check_chain_inputs(stacked, num_layers, R9, t, x, z, biases, mask,
+                        reps: int):
+    """As :func:`_check_inputs`, for the stacked weights and biases."""
+    who = 'fused_encoder_chained'
+    _require(num_layers >= 1, f'num_layers={num_layers}', who)
+    expect = _expected(x, R9, t, z, mask, stacked, reps, (num_layers,), who)
+    N, L, _ = x.shape
+    H = stacked['dims'][0]
+    expect['biases'] = (biases, (N // reps, num_layers, H, L, L),
+                        torch.bfloat16)
+    _check_tensors(expect, x, who)
+
+
 def reset_counts():
-    """Zero the kernel's launch count and the plain version's call count."""
+    """Zero the kernels' launch counts and the plain versions' call
+    counts."""
     gablock_layer.launches = 0
     gablock_layer_reference.calls = 0
+    fused_encoder_chained.launches = 0
+    fused_encoder_chained_reference.calls = 0

@@ -46,3 +46,37 @@ def synthetic_batch(rng, N=2, L=24, n_ab=16, gen_lo=6, gen_hi=12,
         'fragment_type': tt(fragment_type).long(), 'mask': tt(mask),
     }
     return {k: v.to(device) for k, v in batch.items()}
+
+
+def encoder_case(L, Nc, reps, layers, n_pad=0, device='cpu', H=12, seed=0):
+    """Seeded inputs of the sampler's GABlock encoder at full width (node
+    128, pair 64, H heads), ``layers`` blocks with distinct weights and
+    ``n_pad`` padded rows per complex, in the kernels' form (bf16 weights,
+    z and biases). Returns ``(args, bundles, biases)``: the arguments of
+    :func:`ab_opt_tpu_torch.ops.gablock.fused_encoder_chained`, and the
+    per-layer bundles and (Nc, H, L, L) biases that
+    :func:`~ab_opt_tpu_torch.ops.gablock.gablock_layer` takes."""
+    from ..nn.ipa import GABlock, precompute_pair_bias
+    from ..ops.gablock import build_gablock_weights, stack_encoder_weights
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    N = Nc * reps
+    R9 = G.quaternion_to_rotation_matrix(r(N, L, 4)).reshape(N, L, 9)
+    x, t = r(N, L, 128), r(N, L, 3)
+    z = r(Nc, L, L, 64).to(device, torch.bfloat16)
+    mask_c = torch.ones(Nc, L, device=device)
+    if n_pad:
+        mask_c[:, L - n_pad:] = 0.0
+    bundles, biases = [], []
+    with torch.no_grad():
+        for i in range(layers):
+            torch.manual_seed(seed + 1 + i)
+            block = GABlock(128, 64, num_heads=H).to(device)
+            bundles.append(build_gablock_weights(block, torch.bfloat16))
+            biases.append(precompute_pair_bias(
+                z, block.proj_pair_bias.weight.t(), mask_c, torch.bfloat16))
+    to = lambda a: a.to(device).contiguous()
+    args = (stack_encoder_weights(bundles), layers, to(R9), to(t), to(x), z,
+            torch.stack(biases, 1).contiguous(),
+            to(mask_c.repeat_interleave(reps, 0)), reps)
+    return args, bundles, biases

@@ -4,8 +4,8 @@ Phases, each fatal on failure:
   1. device: require CUDA, print the card's name and power limit, turn
      TF32 off;
   2. build: compile every kernel source in ab_opt_tpu_torch/csrc (the
-     GABlock kernel K1, the IPA attention kernels K2/K3/K4), one nvcc per
-     source, all started together;
+     GABlock kernel K1, the IPA attention kernels K2/K3/K4, the chained
+     encoder kernel K5), one nvcc per source, all started together;
   3. K1 vs plain: the GABlock kernel against its plain PyTorch version
      at the sampler's widths (F=128, Cz=64, H=12, L=128), bf16, atol/rtol
      0.05 on valid rows, cases (Nc=1, reps=32), (Nc=2, reps=4, 8 padded
@@ -47,7 +47,19 @@ Phases, each fatal on failure:
      launches), stride=5 at fan-out 256 (20 x 6 K1 launches) and
      sample_structure=False at fan-out 32 (100 x 6 K1 launches, the native
      frames and CA positions unchanged); each with finite outputs, the
-     context residues unchanged and no plain call.
+     context residues unchanged and no plain call;
+  9. K5 vs plain: the chained whole-encoder kernel against its plain
+     version and against six K1 launches on the same inputs (L=128, six
+     layers with distinct seeded weights, bf16, atol/rtol 0.05 on valid
+     rows), cases (Nc=1, reps=256), (Nc=1, reps=32) and (Nc=2, reps=4, 8
+     padded rows); times of all three at reps 256 and 32, and the bound;
+ 10. the chained route (AB_OPT_FUSED_CHAIN=1, set for these calls only),
+     on phase 5's model and complex: one denoiser evaluation through K5
+     against the same evaluation through the plain chain, then
+     BatchedSampler at fan-out 256 and 32 (100 steps each), each with
+     exactly 100 K5 launches, no K1 launch and no plain call, finite
+     outputs and the context residues unchanged; samples/s beside phase 5's
+     K1-route numbers.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds.
 
@@ -56,6 +68,7 @@ Run from the repository root: python3 chip_smoke.py
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -76,6 +89,8 @@ ATTN_F32_TOL = 1e-3
 TRAIN_BATCH = 16
 P2N_FANOUT = 256          # K4's timed case and the ipa_impl='pallas' request
 TIMED_STEPS = 10
+LAYERS = 6                # the encoder depth of DiffAbConfig
+CHAIN_FANOUTS = (256, 32)
 # Kernel vs plain training step. First measured on an H100 (bf16, the
 # slice's step): losses within 5.7e-5 relative, gradient cosine 0.99975,
 # global norms within 9.6e-4; the bounds keep a 10-20x margin.
@@ -140,23 +155,37 @@ def _bound(flops, nbytes):
                                        else 'bytes')
 
 
-def _gablock_bound(args):
-    """K1's bound for one layer on these inputs: the GEMMs and attention
-    products of the layer at their unpadded widths (projections; logits
-    over QK + 3P + 2 terms a pair: the query-key product, the point
-    distances and the two rank-1 norm terms; alpha times V + 3PV values;
-    p2n over Cz), each input (weights included) read once and the output
-    written once."""
-    x, R9, t, z, bias, mask, wb, reps = args
+def _gablock_flops(x, z, wb):
+    """The GEMMs and attention products of one GABlock layer at their
+    unpadded widths (projections; logits over QK + 3P + 2 terms a pair: the
+    query-key product, the point distances and the two rank-1 norm terms;
+    alpha times V + 3PV values; p2n over Cz)."""
     H, QK, V, P, PV = wb['dims']
     N, Ln, F = x.shape
-    M, Cz, ko = N * Ln, z.shape[-1], wb['w_out'].shape[0]
+    M, Cz, ko = N * Ln, z.shape[-1], wb['w_out'].shape[-2]
     proj = H * (2 * QK + V) + 3 * H * (2 * P + PV)
     per_pair = (QK + 3 * P + 2) + (V + 3 * PV) + Cz
-    flops = (2 * M * F * proj + 2 * N * H * Ln * Ln * per_pair
-             + 2 * M * ko * F + 3 * 2 * M * F * F)
+    return (2 * M * F * proj + 2 * N * H * Ln * Ln * per_pair
+            + 2 * M * ko * F + 3 * 2 * M * F * F)
+
+
+def _gablock_bound(args):
+    """K1's bound for one layer on these inputs: its operations, each input
+    (weights included) read once and the output written once."""
+    x, R9, t, z, bias, mask, wb, reps = args
     weights = [v for v in wb.values() if hasattr(v, 'numel')]
-    return _bound(flops, _nbytes(x, R9, t, z, bias, mask, *weights, x))
+    return _bound(_gablock_flops(x, z, wb),
+                  _nbytes(x, R9, t, z, bias, mask, *weights, x))
+
+
+def _chain_bound(args):
+    """K5's bound on these inputs: the operations of every layer, and x in
+    and out, R9, t, mask, z, every layer's bias and weights each counted
+    once."""
+    stacked, layers, R9, t, x, z, biases, mask, reps = args
+    weights = [v for v in stacked.values() if hasattr(v, 'numel')]
+    return _bound(layers * _gablock_flops(x, z, stacked),
+                  _nbytes(x, R9, t, mask, z, biases, *weights, x))
 
 
 def phase_kernel(device):
@@ -313,7 +342,7 @@ def _denoiser_check(model, batch, plain, reps=4):
 
 def phase_slice(device):
     """Three sampling requests; returns the kernel launches they made, the
-    model and the complex."""
+    model, the complex and each request's (fan-out, samples/s)."""
     import numpy as np
     import torch
     from ab_opt_tpu_torch.models import DiffAb, DiffAbConfig
@@ -343,7 +372,7 @@ def phase_slice(device):
     pos_ctx = batch['pos_heavyatom'][0].cpu().numpy()[ctx]
     aa_ctx = batch['aa'][0].cpu().numpy()[ctx]
     gablock.reset_counts()
-    total = 0
+    total, rates = 0, []
     for i, reps in enumerate(FANOUTS):
         before = gablock.gablock_layer.launches
         plain_before = gablock.gablock_layer_reference.calls
@@ -369,7 +398,8 @@ def phase_slice(device):
         if not (finite and shapes_ok and ctx_same and launches == expected
                 and plain == 0):
             raise SystemExit(f'sampling request {i + 1} failed its checks')
-    return total, model, batch
+        rates.append((reps, reps / dt))
+    return total, model, batch, rates
 
 
 def _train_draws(N, Ln, device, seed):
@@ -641,6 +671,125 @@ def phase_paths(model, batch):
     return ia.ipa_attention_fwd_p2n.launches
 
 
+def phase_chain_kernel(device):
+    """K5 vs its plain version and six K1 launches, then the times of all
+    three (see the module docstring, phase 9). Returns max_abs_err (vs
+    plain), ms, plain_ms, bound_ms and bound_by at reps 256."""
+    import torch
+    from ab_opt_tpu_torch.ops import gablock
+    from ab_opt_tpu_torch.utils.bench_fixture import encoder_case
+    torch.set_grad_enabled(False)
+    lay = gablock.chain_layout(L, 12)
+    print(f'K5 layout at L={L}, H=12: x in shared memory '
+          f'{lay["x_in_smem"]}, feature rows in shared memory '
+          f'{lay["feat_in_smem"]}, {lay["smem_bytes"]} bytes a block')
+    res = {'max_abs_err': 0.0}
+    for Nc, reps, n_pad in ((1, 256, 0), (1, 32, 0), (2, 4, 8)):
+        args, bundles, biases = encoder_case(L, Nc, reps, LAYERS, n_pad,
+                                             device, seed=10 + Nc + reps)
+        _, _, R9, t, x, z, _, mask, _ = args
+
+        def six_k1():
+            y = x
+            for wb, bias in zip(bundles, biases):
+                y = gablock.gablock_layer(y, R9, t, z, bias, mask, wb, reps)
+            return y
+
+        kern = lambda: gablock.fused_encoder_chained(*args)
+        plain = lambda: gablock.fused_encoder_chained_reference(*args)
+        got, k1 = kern(), six_k1()
+        torch.cuda.synchronize()
+        ref = plain()
+        valid = mask > 0
+        errs, ok = [], bool(torch.isfinite(got).all())
+        for want in (ref, k1):
+            err = (got[valid] - want[valid]).abs()
+            errs.append(float(err.max()))
+            ok = ok and bool((err <= TOL + TOL * want[valid].abs()).all())
+        print(f'K5 vs plain, vs six K1 launches (Nc={Nc}, reps={reps}, '
+              f'padded rows={n_pad}, {LAYERS} layers): max_abs_err '
+              f'{errs[0]:.6f}, {errs[1]:.6f} ok={ok}')
+        if not ok:
+            raise SystemExit('K5 disagrees with its plain version or K1')
+        res['max_abs_err'] = max(res['max_abs_err'], errs[0])
+        if Nc != 1:
+            continue
+        bound = _chain_bound(args)
+        k_ms = _cuda_ms(kern, 10)
+        k1_ms = _cuda_ms(six_k1, 10)
+        p_ms = _cuda_ms(plain, 3)
+        k_ms2 = _cuda_ms(kern, 10)
+        print(f'K5 ms per encoder pass at reps={reps} (N={reps}, L={L}, '
+              f'{LAYERS} layers): kernel {k_ms:.4f} / {k_ms2:.4f}, six K1 '
+              f'launches {k1_ms:.4f}, plain {p_ms:.4f}, bound '
+              f'{bound[0]:.4f} ({bound[1]})')
+        if reps == 256:
+            res.update(ms=min(k_ms, k_ms2), plain_ms=p_ms, bound_ms=bound[0],
+                       bound_by=bound[1])
+    return res
+
+
+def phase_chain(model, batch, k1_rates):
+    """The chained route (see the module docstring, phase 10). Returns
+    K5's launches in the two requests."""
+    import numpy as np
+    from ab_opt_tpu_torch.ops import gablock
+    from ab_opt_tpu_torch.runners.design import BatchedSampler
+    saved = os.environ.get('AB_OPT_FUSED_CHAIN')
+    os.environ['AB_OPT_FUSED_CHAIN'] = '1'
+    try:
+        d_pos, d_rot, d_seq = _denoiser_check(
+            model, batch, {'chain': gablock.fused_encoder_chained_reference})
+        print(f'denoiser step, AB_OPT_FUSED_CHAIN=1, K5 vs plain chain '
+              f'(reps=4): max |d eps_pos|={d_pos:.5f}, max |d R_next|='
+              f'{d_rot:.5f}, max |d seq probs|={d_seq:.5f}')
+        if not (d_pos < DENOISER_TOL and d_rot < DENOISER_TOL
+                and d_seq < DENOISER_TOL):
+            raise SystemExit('denoiser through K5 disagrees with the plain '
+                             'chain')
+        sampler = BatchedSampler(model)
+        T = model.cfg.num_steps
+        ctx = ~batch['generate_flag'][0].cpu().numpy()
+        pos_ctx = batch['pos_heavyatom'][0].cpu().numpy()[ctx]
+        aa_ctx = batch['aa'][0].cpu().numpy()[ctx]
+        plain_calls = lambda: (gablock.gablock_layer_reference.calls
+                               + gablock.fused_encoder_chained_reference.calls)
+        gablock.reset_counts()
+        for i, reps in enumerate(CHAIN_FANOUTS):
+            k5 = gablock.fused_encoder_chained.launches
+            k1 = gablock.gablock_layer.launches
+            plain = plain_calls()
+            t0 = time.perf_counter()
+            out = sampler(batch, seed=300 + i, num_replicas=reps)
+            dt = time.perf_counter() - t0
+            k5 = gablock.fused_encoder_chained.launches - k5
+            k1 = gablock.gablock_layer.launches - k1
+            plain = plain_calls() - plain
+            finite = all(np.isfinite(out[k]).all()
+                         for k in ('v', 'p', 'pos_atom_new', 'prmsd',
+                                   'perplexity'))
+            shapes_ok = (out['p'].shape == (reps, L, 3)
+                         and out['pos_atom_new'].shape == (reps, L, 15, 3))
+            ctx_same = bool((out['pos_atom_new'][:, ctx] == pos_ctx).all()
+                            and (out['s'][:, ctx] == aa_ctx).all())
+            k1_route = ', '.join(f'{r:.3f}' for n, r in k1_rates if n == reps)
+            print(f'chained request {i + 1}: fan-out {reps}, {T} steps: '
+                  f'{dt:.3f} s, {reps / dt:.3f} samples/s (K1 route, phase '
+                  f'5: {k1_route}), {dt * 1000.0 / T:.3f} ms/step, K5 '
+                  f'launches {k5}, K1 launches {k1}, plain calls {plain}, '
+                  f'finite={finite}, shapes_ok={shapes_ok}, '
+                  f'context_unchanged={ctx_same}')
+            if not (finite and shapes_ok and ctx_same
+                    and (k5, k1, plain) == (T, 0, 0)):
+                raise SystemExit(f'chained request {i + 1} failed its checks')
+    finally:
+        if saved is None:
+            del os.environ['AB_OPT_FUSED_CHAIN']
+        else:
+            os.environ['AB_OPT_FUSED_CHAIN'] = saved
+    return gablock.fused_encoder_chained.launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -666,10 +815,12 @@ def main():
 
     max_err, times, bounds = phase_kernel(device)
     attn = phase_attention(device)
-    launches, model, batch = phase_slice(device)
+    launches, model, batch, k1_rates = phase_slice(device)
     k2, k3 = phase_train(device)
     p2n = phase_p2n(device)
     k4 = phase_paths(model, batch)
+    chain = phase_chain_kernel(device)
+    k5 = phase_chain(model, batch, k1_rates)
 
     kernels = [dict(
         name='gablock', route='cuda', source='ab_opt_tpu_torch/csrc/gablock.cu',
@@ -688,6 +839,11 @@ def main():
         source='ab_opt_tpu_torch/csrc/ipa_attention.cu',
         replaces='ab_opt_tpu/ops/ipa_pallas.py:142', launches=k4, **p2n,
         library_ms=None))
+    kernels.append(dict(
+        name='gablock_chain', route='cuda',
+        source='ab_opt_tpu_torch/csrc/gablock_chain.cu',
+        replaces='ab_opt_tpu/ops/gablock_pallas.py:409', launches=k5,
+        **chain, library_ms=None))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

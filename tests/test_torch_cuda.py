@@ -11,6 +11,7 @@ import torch
 from ab_opt_tpu_torch.geometry import quaternion_to_rotation_matrix
 from ab_opt_tpu_torch.nn.ipa import GABlock, precompute_pair_bias
 from ab_opt_tpu_torch.ops import gablock as gb
+from ab_opt_tpu_torch.utils.bench_fixture import encoder_case
 
 
 @pytest.mark.cuda
@@ -146,3 +147,50 @@ def test_p2n_kernel_matches_plain_on_card(L, Nc, reps, dtype):
             atol, rtol = 1e-3 * float(b.abs().max()), 1e-2
         torch.testing.assert_close(a.float(), b, atol=atol, rtol=rtol,
                                    msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L,Nc,reps,layers,n_pad', [
+    (16, 2, 1, 6, 3), (48, 1, 3, 2, 5), (128, 2, 2, 6, 8), (128, 1, 1, 2, 0),
+    (256, 1, 3, 2, 7), (256, 2, 2, 6, 0)])
+def test_chain_kernel_matches_plain_and_k1_on_card(L, Nc, reps, layers, n_pad):
+    """K5 against the plain chain and against ``layers`` K1 launches on the
+    same inputs, distinct weights per layer (a layer-stride fault shows),
+    L below, at and past the shared-memory layout's switches, reps 1, 2 and
+    3, with and without padded rows: atol/rtol 0.05 on valid rows, K1's
+    budget."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    args, bundles, biases = encoder_case(L, Nc, reps, layers, n_pad,
+                                         torch.device('cuda'), seed=L + reps)
+    _, _, R9, t, x, z, _, mask, _ = args
+    gb.reset_counts()
+    with torch.no_grad():
+        got = gb.fused_encoder_chained(*args)
+        k1 = x
+        for wb, bias in zip(bundles, biases):
+            k1 = gb.gablock_layer(k1, R9, t, z, bias, mask, wb, reps)
+        torch.cuda.synchronize()
+        ref = gb.fused_encoder_chained_reference(*args)
+    assert gb.fused_encoder_chained.launches == 1
+    assert gb.gablock_layer.launches == layers
+    valid = mask > 0
+    assert torch.isfinite(got).all()
+    for want in (ref, k1):
+        torch.testing.assert_close(got[valid], want[valid], atol=0.05,
+                                   rtol=0.05)
+
+
+@pytest.mark.cuda
+def test_chain_kernel_rejects_what_it_does_not_take():
+    """L past 256 and a tile that does not fit in shared memory (H=20 at
+    L=256) raise; nothing launches."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    dev = torch.device('cuda')
+    gb.reset_counts()
+    for L, H, match in ((272, 12, 'L=272'), (256, 20, 'does not fit')):
+        args, _, _ = encoder_case(L, 1, 1, 2, 0, dev, H=H)
+        with pytest.raises(ValueError, match=match):
+            gb.fused_encoder_chained(*args)
+    assert gb.fused_encoder_chained.launches == 0

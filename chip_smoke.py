@@ -5,7 +5,8 @@ Phases, each fatal on failure:
      TF32 off;
   2. build: compile every kernel source in ab_opt_tpu_torch/csrc (the
      GABlock kernel K1, the IPA attention kernels K2/K3/K4, the chained
-     encoder kernel K5), one nvcc per source, all started together;
+     encoder kernel K5, the attention variants S1-S3), one nvcc per
+     source, all started together;
   3. K1 vs plain: the GABlock kernel against its plain PyTorch version
      at the sampler's widths (F=128, Cz=64, H=12, L=128), bf16, atol/rtol
      0.05 on valid rows, cases (Nc=1, reps=32), (Nc=2, reps=4, 8 padded
@@ -59,7 +60,15 @@ Phases, each fatal on failure:
      BatchedSampler at fan-out 256 and 32 (100 steps each), each with
      exactly 100 K5 launches, no K1 launch and no plain call, finite
      outputs and the context residues unchanged; samples/s beside phase 5's
-     K1-route numbers.
+     K1-route numbers;
+ 11. the attention variants (S1 as v1 and v3, S2 as v2, S3 as v4) vs their
+     plain versions (K2's and K4's) at (N=256, reps=256, L=128) and (N=3,
+     reps=3, L=48, 5 padded key columns), bf16, each tensor within K2's
+     bf16 gate; then the variants' own path, the timing harness
+     (utils/micro_attention.py) at the first case with the counts zeroed
+     before it: exactly one warm-up and VARIANT_ITERS timed launches of each
+     variant; the plain versions' times, the bounds, and the library
+     yardstick for v3 (scaled_dot_product_attention).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds.
 
@@ -91,6 +100,11 @@ P2N_FANOUT = 256          # K4's timed case and the ipa_impl='pallas' request
 TIMED_STEPS = 10
 LAYERS = 6                # the encoder depth of DiffAbConfig
 CHAIN_FANOUTS = (256, 32)
+# S1-S3 vs plain: (N, reps, L, padded key columns); the first is the
+# script's shape and is timed. L=48 shows a row-stride fault that L=128
+# hides.
+VARIANT_CASES = ((256, 256, L, 0), (3, 3, 48, 5))
+VARIANT_ITERS = 20
 # Kernel vs plain training step. First measured on an H100 (bf16, the
 # slice's step): losses within 5.7e-5 relative, gradient cosine 0.99975,
 # global norms within 9.6e-4; the bounds keep a 10-20x margin.
@@ -790,6 +804,117 @@ def phase_chain(model, batch, k1_rates):
     return gablock.fused_encoder_chained.launches
 
 
+def _bf16_gate(a, b):
+    """A bf16 kernel output against its plain version: finite, and each
+    element within ATTN_BF16_RTOL of |plain| plus ATTN_BF16_ATOL_FRAC of the
+    plain tensor's largest value. Returns (max_abs_err, atol, ok)."""
+    import torch
+    b = b.float()
+    err = (a.float() - b).abs()
+    atol = ATTN_BF16_ATOL_FRAC * float(b.abs().max())
+    ok = bool(torch.isfinite(a).all()) and bool(
+        (err <= atol + ATTN_BF16_RTOL * b.abs()).all())
+    return float(err.max()), atol, ok
+
+
+def phase_variants(device):
+    """S1-S3 vs their plain versions, then the harness's run and the times
+    (see the module docstring, phase 11). Returns {variant: row} with
+    launches, max_abs_err, ms, plain_ms, bound_ms, bound_by and
+    library_ms."""
+    import torch
+    from ab_opt_tpu_torch.ops import attention_variants as av
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.utils import micro_attention as mh
+    torch.set_grad_enabled(False)
+    t0 = time.perf_counter()
+    H, Cz = 12, 64
+    lib = av._library()
+    for kind, c_smem, py_smem in (
+            ('phased', lib.attention_phased_smem, av.phased_smem),
+            ('head_batched', lib.attention_head_batched_smem,
+             av.head_batched_smem)):
+        cap = av.max_length(kind, H)
+        print(f'S1-S3 {kind} block at L={L}, H={H}: {c_smem(L, H)} bytes of '
+              f'shared memory (wrapper plan {py_smem(L, H)}); cap L={cap} '
+              f'({c_smem(cap, H)} bytes)')
+        if (c_smem(L, H), c_smem(cap, H)) != (py_smem(L, H), py_smem(cap, H)):
+            raise SystemExit(f'the {kind} wrapper plans shared memory unlike '
+                             'the kernel')
+    res = {k: {'max_abs_err': 0.0} for k in ('v1', 'v3', 'v2', 'v4')}
+    timed = None
+    for N, reps, Ln, n_pad in VARIANT_CASES:
+        ops = mh.make_operands(N, reps, Ln, H, Cz, device, seed=N + Ln + 2,
+                               n_pad=n_pad)
+        qa, ka, vvp, bias, z = ops
+        k2 = lambda: ia.ipa_attention_fwd_reference(qa, ka, vvp, bias, reps)
+        k4 = lambda: ia.ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z,
+                                                        reps)
+        cases = (   # (variant, kernel, plain, output names)
+            ('v1', lambda: av.attention_v1(qa, ka, vvp, bias, reps), k2,
+             ('out', 'alphas')),
+            ('v3', lambda: (av.attention_v1(qa, ka, vvp, bias, reps,
+                                            store_alphas=False),),
+             lambda: k2()[:1], ('out',)),
+            ('v2', lambda: av.attention_v2(qa, ka, vvp, bias, reps), k2,
+             ('out', 'alphas')),
+            ('v4', lambda: av.attention_v4(qa, ka, vvp, bias, z, reps), k4,
+             ('out', 'p2n')))
+        outputs = {}
+        for name, kern, plain, names in cases:
+            got = kern()
+            torch.cuda.synchronize()
+            errs = []
+            for what, a, b in zip(names, got, plain()):
+                err, atol, ok = _bf16_gate(a, b)
+                errs.append(f'{what} {err:.6f} (atol {atol:.2e})')
+                res[name]['max_abs_err'] = max(res[name]['max_abs_err'], err)
+                if not ok:
+                    raise SystemExit(f'attention {name} {what} disagrees with '
+                                     f'its plain version (N={N}, L={Ln})')
+            outputs[name] = got
+            print(f'{name} vs plain (N={N}, reps={reps}, L={Ln}, padded key '
+                  f'columns={n_pad}, bf16, rtol {ATTN_BF16_RTOL}): '
+                  f'max_abs_err ' + ', '.join(errs))
+        if timed is None:
+            timed = (N, reps, Ln, ops, outputs, k2, k4)
+
+    # The variants' own path: the harness, counts zeroed just before it.
+    N, reps, Ln, ops, outputs, k2, k4 = timed
+    qa, ka, vvp, bias, z = ops
+    av.reset_counts()
+    ms = mh.time_variants(*ops, reps, iters=VARIANT_ITERS)
+    counts = dict(av.launches)
+    plain_k2, plain_k4 = _cuda_ms(k2, 5), _cuda_ms(k4, 5)
+    sdpa, layout = mh.sdpa_call(qa, ka, vvp, bias, reps)
+    sdpa_err = float((layout(sdpa()).float() - k2()[0].float()).abs().max())
+    pairs = N * H * Ln * Ln
+    inputs = _nbytes(qa, ka, vvp, bias)
+    for name in res:
+        got = outputs[name]
+        flops = 4 * pairs * 64 + (2 * pairs * Cz if name == 'v4' else 0)
+        nbytes = inputs + _nbytes(*got) + (_nbytes(z) if name == 'v4' else 0)
+        bound = _bound(flops, nbytes)
+        res[name].update(
+            launches=counts[name], ms=ms[name],
+            plain_ms=plain_k4 if name == 'v4' else plain_k2,
+            bound_ms=bound[0], bound_by=bound[1],
+            library_ms=ms['sdpa'] if name == 'v3' else None)
+        print(f'{name} ms at N={N}, reps={reps}, L={Ln}, H={H}, bf16: kernel '
+              f'{ms[name]:.4f}, plain {res[name]["plain_ms"]:.4f}, bound '
+              f'{bound[0]:.4f} ({bound[1]}, {nbytes / 1e6:.1f} MB, '
+              f'{flops / 1e9:.2f} GFLOP), harness launches {counts[name]}')
+    print(f'same shape: v0 (K2) {ms["v0"]:.4f} ms, K4 {ms["k4"]:.4f} ms, p2n '
+          f'einsum over K2 alphas {ms["p2n_einsum"]:.4f} ms, '
+          f'scaled_dot_product_attention (v3 out) {ms["sdpa"]:.4f} ms '
+          f'(max |d out| vs plain {sdpa_err:.6f})')
+    if any(n != VARIANT_ITERS + 1 for n in counts.values()):
+        raise SystemExit(f'the harness launched the variants {counts} times, '
+                         f'not {VARIANT_ITERS + 1} each')
+    print(f'phase 11: {time.perf_counter() - t0:.2f} s')
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -821,6 +946,7 @@ def main():
     k4 = phase_paths(model, batch)
     chain = phase_chain_kernel(device)
     k5 = phase_chain(model, batch, k1_rates)
+    variants = phase_variants(device)
 
     kernels = [dict(
         name='gablock', route='cuda', source='ab_opt_tpu_torch/csrc/gablock.cu',
@@ -844,6 +970,12 @@ def main():
         source='ab_opt_tpu_torch/csrc/gablock_chain.cu',
         replaces='ab_opt_tpu/ops/gablock_pallas.py:409', launches=k5,
         **chain, library_ms=None))
+    for name, line in (('v1', 45), ('v3', 45), ('v2', 98), ('v4', 137)):
+        kernels.append(dict(
+            name=f'attention_{name}', route='cuda',
+            source='ab_opt_tpu_torch/csrc/attention_variants.cu',
+            replaces=f'scripts/micro_kernel_variants.py:{line}',
+            **variants[name]))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The GABlock kernel (K1) and the IPA attention kernels (K2, K3, K4)
+"""The GABlock kernel (K1), the IPA attention kernels (K2, K3, K4), the
+chained encoder kernel (K5) and the attention variants (S1-S3)
 against their plain versions, on an NVIDIA GPU (marker
 ``cuda``; skips without a card). Imports no JAX, so it also runs where only
 the port is installed:
@@ -194,3 +195,82 @@ def test_chain_kernel_rejects_what_it_does_not_take():
         with pytest.raises(ValueError, match=match):
             gb.fused_encoder_chained(*args)
     assert gb.fused_encoder_chained.launches == 0
+
+
+VARIANT_CASES = [(v, L, Nc, reps) for v in ('v1', 'v3', 'v2', 'v4')
+                 for L, Nc, reps in ((16, 2, 1), (48, 1, 3), (128, 2, 1),
+                                     (128, 1, 3))]
+VARIANT_CASES += [('v2', 192, 1, 3)]         # S2's cap at 12 heads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('variant,L,Nc,reps', VARIANT_CASES)
+def test_attention_variants_match_plain_on_card(variant, L, Nc, reps):
+    """S1 (v1, v3), S2 (v2) and S3 (v4) against their plain versions (K2's
+    and K4's), bf16, 5 padded key columns, L up to each kernel's cap: each
+    tensor within rtol 1e-2 and atol 1e-3 of its largest value (both
+    sides compute in f32 and round alpha and each output once). The call
+    launches its kernel once and reaches no plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import attention_variants as av
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.utils.micro_attention import make_operands
+    qa, ka, vvp, bias, z = make_operands(Nc * reps, reps, L, 12, 64,
+                                         torch.device('cuda'), seed=L + reps,
+                                         n_pad=5)
+    av.reset_counts()
+    with torch.no_grad():
+        if variant == 'v4':
+            got = av.attention_v4(qa, ka, vvp, bias, z, reps)
+        elif variant == 'v2':
+            got = av.attention_v2(qa, ka, vvp, bias, reps)
+        else:
+            got = av.attention_v1(qa, ka, vvp, bias, reps,
+                                  store_alphas=variant == 'v1')
+            got = got if variant == 'v1' else (got,)
+        torch.cuda.synchronize()
+        assert ia.ipa_attention_fwd_reference.calls == 0
+        assert ia.ipa_attention_fwd_p2n_reference.calls == 0
+        assert av.launches == {k: int(k == variant) for k in av.launches}
+        ref = (ia.ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z, reps)
+               if variant == 'v4'
+               else ia.ipa_attention_fwd_reference(qa, ka, vvp, bias, reps))
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        b = b.float()
+        torch.testing.assert_close(a.float(), b, rtol=1e-2,
+                                   atol=1e-3 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_attention_variants_refuse_on_card():
+    """float32 and an L past the cap raise on CUDA tensors and launch
+    nothing; the wrapper's shared-memory plan is the kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import attention_variants as av
+    from ab_opt_tpu_torch.utils.micro_attention import make_operands
+    dev = torch.device('cuda')
+    lib = av._library()
+    for L in (16, 48, 128, 144, 192, 208):
+        assert lib.attention_phased_smem(L, 12) == av.phased_smem(L, 12)
+        assert (lib.attention_head_batched_smem(L, 12)
+                == av.head_batched_smem(L, 12))
+    av.reset_counts()
+    qa, ka, vvp, bias, z = make_operands(2, 1, 32, 12, 64, dev)
+    f32 = [a.float() for a in (qa, ka, vvp, bias, z)]
+    with pytest.raises(ValueError, match='bfloat16 only'):
+        av.attention_v1(*f32[:4])
+    with pytest.raises(ValueError, match='bfloat16 only'):
+        av.attention_v2(*f32[:4])
+    with pytest.raises(ValueError, match='bfloat16 only'):
+        av.attention_v4(*f32)
+    qa, ka, vvp, bias, z = make_operands(1, 1, 208, 12, 64, dev)
+    for call in (lambda: av.attention_v1(qa, ka, vvp, bias),
+                 lambda: av.attention_v2(qa, ka, vvp, bias),
+                 lambda: av.attention_v4(qa, ka, vvp, bias, z)):
+        with pytest.raises(ValueError, match='past the cap'):
+            call()
+    assert av.launches == {'v1': 0, 'v3': 0, 'v2': 0, 'v4': 0}

@@ -43,6 +43,41 @@
 // 32, 8 query points, 8 value points, pair width 64, node width 128. The
 // number of heads H (multiple of 4) and L (multiple of 16, at most 256) are
 // runtime values. The Python wrapper (ops/gablock.py) checks all of this.
+//
+// S4, the fused-GABlock variant harness (scripts/micro_fused_variants.py,
+// run_layer :165 over _gablock_kernel_v3 :48 and _gablock_kernel_abl :264),
+// runs from this file too, through gablock_forward_variant(..., abl, rt);
+// its wrappers are in ops/gablock_variants.py.
+//   v3 (rt >= 1): step 3 is attn_rt_kernel, one block per (64 query rows,
+//     head, rt replicas of one complex). The tile's bias rows are staged in
+//     shared memory once and serve all rt replicas; each replica then runs
+//     as in attn_kernel, alpha in the same layout for p2n. The script's
+//     h-major (h*RT + r) alpha stack was a TPU lane layout, not kept.
+//   abl (rt = 0): steps 2, 3 and 5 are templates on a mask of ABL_* bits
+//     (if constexpr); skip_p2n and skip_mlp act on the host side (a launch
+//     skipped, its columns zeroed), fake_feat swaps feat_kernel for a copy
+//     kernel. Mask 0 is the code gablock_forward runs.
+//   flag (script)   counterpart here
+//   skip_p2n        p2n_kernel not launched; the p2n feature columns zero
+//   fake_softmax    attn: alpha = bf16(0.01 (logits + bias)), no max/exp/sum
+//   fake_alpha      attn: alpha = bf16(0.01 bias), no logits, no softmax
+//   skip_rot        assemble without R, t; feat without R^T (. - t)
+//   skip_mlp        the MLP GEMMs and LN2 not launched; out = x1
+//   skip_sq         assemble: the |p|^2 slot takes the first H planar point
+//                   columns (x of the operand's first H points)
+//   fake_feat       feat_kernel not launched; fake_feat_kernel fills the
+//                   H (VD + 7 NPV) non-p2n feature columns with
+//                   [o | o[:, :H (VD + 7 NPV) - H SLOT]] over o's 64-wide
+//                   slots (pad zero): a copy of the bytes feat_kernel moves
+//   skip_values     attn: no alpha . V; o = the replica's own vvp rows
+//   thin_ops        assemble: the point and |p|^2 slots of qa/ka and the
+//                   point slots of vvp zero, the constant slots kept
+//   skip_sect       none: the projection here is operand-major, so there is
+//                   no section gather to drop (the baseline's mask)
+//   skip_out, skip_wpts  none: the TPU body never reads them
+//   floor           the seven flags skip_sq, skip_values, fake_feat,
+//                   fake_alpha, skip_rot, skip_p2n, skip_mlp
+// The entry takes the masks the harness uses: 0, each single bit, the floor.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -215,6 +250,25 @@ gemm_kernel(const TA* __restrict__ A, int lda, const bf16* __restrict__ B,
   }
 }
 
+// ------------------------------------------------------------- ablations
+// S4's phase-ablation bits (see the header); the bits each kernel reads.
+enum : int {
+  ABL_SKIP_P2N = 1 << 0,
+  ABL_FAKE_SOFTMAX = 1 << 1,
+  ABL_FAKE_ALPHA = 1 << 2,
+  ABL_SKIP_ROT = 1 << 3,
+  ABL_SKIP_MLP = 1 << 4,
+  ABL_SKIP_SQ = 1 << 5,
+  ABL_FAKE_FEAT = 1 << 6,
+  ABL_SKIP_VALUES = 1 << 7,
+  ABL_THIN_OPS = 1 << 8,
+  ABL_FLOOR = ABL_SKIP_SQ | ABL_SKIP_VALUES | ABL_FAKE_FEAT | ABL_FAKE_ALPHA |
+              ABL_SKIP_ROT | ABL_SKIP_P2N | ABL_SKIP_MLP,
+  ABL_ASSEMBLE = ABL_SKIP_ROT | ABL_SKIP_SQ | ABL_THIN_OPS,
+  ABL_ATTN = ABL_FAKE_SOFTMAX | ABL_FAKE_ALPHA | ABL_SKIP_VALUES,
+  ABL_FEAT = ABL_SKIP_ROT,
+};
+
 // -------------------------------------------------------------- assemble
 // One block per row (trajectory n, residue i). proj row layout:
 // [q (H*QK) | k (H*QK) | v (H*VD) | qp | kp | vp], each point block planar
@@ -223,11 +277,13 @@ gemm_kernel(const TA* __restrict__ A, int lda, const bf16* __restrict__ B,
 //   ka = [k            | kp_g        | 1            | |kp_g|^2 | 0]
 //   vv = [v            | vp_g        | 0]
 // so that qa . ka = the node + spatial logits, pre-scaled by 1/sqrt(3).
+template <int ABL>
 __global__ void __launch_bounds__(256)
 assemble_kernel(const bf16* __restrict__ proj, int pw,
                 const float* __restrict__ R9, const float* __restrict__ tr,
                 const float* __restrict__ coef, int H, bf16* __restrict__ qa,
                 bf16* __restrict__ ka, bf16* __restrict__ vv) {
+  constexpr bool kThin = (ABL & ABL_THIN_OPS) != 0;
   extern __shared__ float smf[];
   const int row = blockIdx.x, tid = threadIdx.x;
   const int HP = H * NP, HPV = H * NPV, npts = 2 * HP + HPV;
@@ -241,28 +297,40 @@ assemble_kernel(const bf16* __restrict__ proj, int pw,
   for (int e = 0; e < 3; ++e) t[e] = tr[(size_t)row * 3 + e];
 
   const int pbase = H * (2 * QK + VD);
-  for (int idx = tid; idx < npts; idx += blockDim.x) {
-    int base, n, j;
-    if (idx < HP) { base = pbase; n = HP; j = idx; }
-    else if (idx < 2 * HP) { base = pbase + 3 * HP; n = HP; j = idx - HP; }
-    else { base = pbase + 6 * HP; n = HPV; j = idx - 2 * HP; }
-    float px = bf(pr[base + j]), py = bf(pr[base + n + j]), pz = bf(pr[base + 2 * n + j]);
+  if constexpr (!kThin) {
+    for (int idx = tid; idx < npts; idx += blockDim.x) {
+      int base, n, j;
+      if (idx < HP) { base = pbase; n = HP; j = idx; }
+      else if (idx < 2 * HP) { base = pbase + 3 * HP; n = HP; j = idx - HP; }
+      else { base = pbase + 6 * HP; n = HPV; j = idx - 2 * HP; }
+      float px = bf(pr[base + j]), py = bf(pr[base + n + j]), pz = bf(pr[base + 2 * n + j]);
+      if constexpr ((ABL & ABL_SKIP_ROT) != 0) {
+        g[idx] = px;
+        g[npts + idx] = py;
+        g[2 * npts + idx] = pz;
+      } else {
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      g[c * npts + idx] = R[3 * c] * px + R[3 * c + 1] * py + R[3 * c + 2] * pz + t[c];
-  }
-  __syncthreads();
-  if (tid < 2 * H) {
-    int o = tid / H, h = tid % H;
-    float s = 0.0f;
-    for (int c = 0; c < 3; ++c)
-      for (int p = 0; p < NP; ++p) {
-        float v = g[c * npts + o * HP + h * NP + p];
-        s += v * v;
+        for (int c = 0; c < 3; ++c)
+          g[c * npts + idx] = R[3 * c] * px + R[3 * c + 1] * py + R[3 * c + 2] * pz + t[c];
       }
-    sq[tid] = s;
+    }
+    __syncthreads();
+    if (tid < 2 * H) {
+      int o = tid / H, h = tid % H;
+      float s = 0.0f;
+      if constexpr ((ABL & ABL_SKIP_SQ) != 0) {
+        s = g[o * HP + h];        // x of the operand's h-th point
+      } else {
+        for (int c = 0; c < 3; ++c)
+          for (int p = 0; p < NP; ++p) {
+            float v = g[c * npts + o * HP + h * NP + p];
+            s += v * v;
+          }
+      }
+      sq[tid] = s;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   const float s_node = 1.0f / sqrtf(3.0f * QK);
   const size_t ob = (size_t)row * H * SLOT;
@@ -275,14 +343,18 @@ assemble_kernel(const bf16* __restrict__ proj, int pw,
       b = bf(pr[H * QK + h * QK + d]);
       v = bf(pr[2 * H * QK + h * VD + d]);
     } else if (d < QK + 3 * NP) {
-      int e = d - QK, c = e / NP, p = e % NP;
-      a = -2.0f * cf * g[c * npts + h * NP + p];
-      b = g[c * npts + HP + h * NP + p];
-      v = g[c * npts + 2 * HP + h * NPV + p];
+      if constexpr (kThin) {
+        a = 0.0f; b = 0.0f; v = 0.0f;
+      } else {
+        int e = d - QK, c = e / NP, p = e % NP;
+        a = -2.0f * cf * g[c * npts + h * NP + p];
+        b = g[c * npts + HP + h * NP + p];
+        v = g[c * npts + 2 * HP + h * NPV + p];
+      }
     } else if (d == QK + 3 * NP) {
-      a = cf * sq[h]; b = 1.0f; v = 0.0f;
+      a = kThin ? 0.0f : cf * sq[h]; b = 1.0f; v = 0.0f;
     } else if (d == QK + 3 * NP + 1) {
-      a = cf; b = sq[H + h]; v = 0.0f;
+      a = cf; b = kThin ? 0.0f : sq[H + h]; v = 0.0f;
     } else {
       a = 0.0f; b = 0.0f; v = 0.0f;
     }
@@ -293,21 +365,37 @@ assemble_kernel(const bf16* __restrict__ proj, int pw,
 }
 
 // ------------------------------------------------------------- attention
-// Block = (64 query rows, head h, trajectory n), 4 warps x 16 rows.
-// Writes o (attention values, 64-wide slot per head) and alpha in the
-// (Nc, L, reps*H, L) layout the p2n kernel reads row by row.
+// One tile = (64 query rows from i0, head h, trajectory n), 4 warps x 16
+// rows. Writes o (attention values, 64-wide slot per head) and alpha in the
+// (Nc, L, reps*H, L) layout the p2n kernel reads row by row. brows points at
+// the pair-bias row of query i0, the next rows bld elements apart (device
+// memory in attn_kernel, shared memory in attn_rt_kernel).
 constexpr int AQ = 64;
 
 // Row stride (floats) of the attention block's logits buffer; it also holds
 // the 64-wide alpha.vvp tile afterwards, so it is at least SLOT wide.
-__host__ __device__ inline int attn_sld(int L) { return (L > SLOT ? L : SLOT) + 4; }
+__host__ __device__ constexpr int attn_sld(int L) { return (L > SLOT ? L : SLOT) + 4; }
 
-__global__ void __launch_bounds__(128)
-attn_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
-            const bf16* __restrict__ vv, const bf16* __restrict__ bias,
-            bf16* __restrict__ o, bf16* __restrict__ alpha, int L, int H,
-            int reps) {
-  extern __shared__ __align__(128) unsigned char smraw[];
+__host__ __device__ constexpr size_t attn_smem(int L) {
+  return (size_t)2 * L * KLD * 2 + (size_t)AQ * KLD * 2 + (size_t)AQ * attn_sld(L) * 4 +
+         (size_t)AQ * (L + 8) * 2;
+}
+
+// attn_rt_kernel also keeps the tile's (64, L) bias rows, (L + 8) apart.
+__host__ __device__ constexpr size_t attn_rt_smem(int L) {
+  return attn_smem(L) + (size_t)AQ * (L + 8) * 2;
+}
+// Both attention blocks fit a block's shared memory on sm_90 (232,448
+// bytes) up to the largest L the wrapper takes (256), so L has no lower cap.
+static_assert(attn_rt_smem(256) <= 232448, "attn_rt_kernel's plan exceeds sm_90");
+
+template <int ABL>
+__device__ __forceinline__ void attn_tile(
+    const bf16* __restrict__ qa, const bf16* __restrict__ ka,
+    const bf16* __restrict__ vv, const bf16* brows, int bld,
+    bf16* __restrict__ o, bf16* __restrict__ alpha, int L, int H, int reps,
+    int n, int h, int i0, unsigned char* smraw) {
+  constexpr bool kFakeAlpha = (ABL & ABL_FAKE_ALPHA) != 0;
   const int SLD = attn_sld(L), PLD = L + 8;
   bf16* Ks = reinterpret_cast<bf16*>(smraw);
   bf16* Vs = Ks + L * KLD;
@@ -315,7 +403,6 @@ attn_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
   float* S = reinterpret_cast<float*>(Qs + AQ * KLD);
   bf16* Pm = reinterpret_cast<bf16*>(S + AQ * SLD);
 
-  const int n = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * AQ;
   const int c = n / reps, rp = n % reps;
   const int HD = H * SLOT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -335,25 +422,26 @@ attn_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
   __syncthreads();
 
   const int wrow = warp * 16;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[SLOT / 16];
+  if constexpr (!kFakeAlpha) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[SLOT / 16];
 #pragma unroll
-  for (int kk = 0; kk < SLOT / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], Qs + wrow * KLD + kk * 16, KLD);
-  for (int jt = 0; jt < L / 16; ++jt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
+    for (int kk = 0; kk < SLOT / 16; ++kk)
+      wmma::load_matrix_sync(qf[kk], Qs + wrow * KLD + kk * 16, KLD);
+    for (int jt = 0; jt < L / 16; ++jt) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.0f);
 #pragma unroll
-    for (int kk = 0; kk < SLOT / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-      wmma::load_matrix_sync(kf, Ks + jt * 16 * KLD + kk * 16, KLD);
-      wmma::mma_sync(acc, qf[kk], kf, acc);
+      for (int kk = 0; kk < SLOT / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
+        wmma::load_matrix_sync(kf, Ks + jt * 16 * KLD + kk * 16, KLD);
+        wmma::mma_sync(acc, qf[kk], kf, acc);
+      }
+      wmma::store_matrix_sync(S + wrow * SLD + jt * 16, acc, SLD, wmma::mem_row_major);
     }
-    wmma::store_matrix_sync(S + wrow * SLD + jt * 16, acc, SLD, wmma::mem_row_major);
+    __syncwarp();
   }
-  __syncwarp();
 
   // Exact softmax over keys, f32; masked keys carry -1e5 in the bias.
-  const bf16* bbase = bias + ((size_t)c * H + h) * L * L;
   const size_t RH = (size_t)reps * H;
   for (int rr = 0; rr < 16; ++rr) {
     const int row = wrow + rr, i = i0 + row;
@@ -363,7 +451,18 @@ attn_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
       for (int j = lane; j < L; j += 32) prow[j] = tobf(0.0f);
       continue;
     }
-    const bf16* brow = bbase + (size_t)i * L;
+    const bf16* brow = brows + (size_t)row * bld;
+    bf16* arow = alpha + (((size_t)c * L + i) * RH + (size_t)rp * H + h) * L;
+    if constexpr ((ABL & (ABL_FAKE_ALPHA | ABL_FAKE_SOFTMAX)) != 0) {
+      for (int j = lane; j < L; j += 32) {
+        float v = bf(brow[j]);
+        if constexpr (!kFakeAlpha) v += srow[j];
+        bf16 a = tobf(0.01f * v);
+        prow[j] = a;
+        arow[j] = a;
+      }
+      continue;
+    }
     float mx = -INFINITY;
     for (int j = lane; j < L; j += 32) {
       float v = srow[j] + bf(brow[j]);
@@ -378,7 +477,6 @@ attn_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
       s += e;
     }
     const float inv = 1.0f / warp_sum(s);
-    bf16* arow = alpha + (((size_t)c * L + i) * RH + (size_t)rp * H + h) * L;
     for (int j = lane; j < L; j += 32) {
       bf16 a = tobf(srow[j] * inv);
       prow[j] = a;
@@ -386,6 +484,16 @@ attn_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
     }
   }
   __syncwarp();
+
+  if constexpr ((ABL & ABL_SKIP_VALUES) != 0) {
+    for (int rr = 0; rr < 16; ++rr) {
+      const int i = i0 + wrow + rr;
+      if (i >= L) continue;
+      bf16* dst = o + ((size_t)n * L + i) * HD + h * SLOT;
+      for (int d = lane; d < SLOT; d += 32) dst[d] = Vs[i * KLD + d];
+    }
+    return;
+  }
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[SLOT / 16];
 #pragma unroll
@@ -409,6 +517,49 @@ attn_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
     if (i >= L) continue;
     bf16* dst = o + ((size_t)n * L + i) * HD + h * SLOT;
     for (int d = lane; d < SLOT; d += 32) dst[d] = tobf(S[(wrow + rr) * SLD + d]);
+  }
+}
+
+// Block = (64 query rows, head h, trajectory n); the bias rows come
+// straight from device memory.
+template <int ABL>
+__global__ void __launch_bounds__(128)
+attn_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
+            const bf16* __restrict__ vv, const bf16* __restrict__ bias,
+            bf16* __restrict__ o, bf16* __restrict__ alpha, int L, int H,
+            int reps) {
+  extern __shared__ __align__(128) unsigned char smraw[];
+  const int n = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * AQ;
+  const int c = n / reps;
+  attn_tile<ABL>(qa, ka, vv, bias + (((size_t)c * H + h) * L + i0) * L, L, o,
+                 alpha, L, H, reps, n, h, i0, smraw);
+}
+
+// S4's v3. Block = (64 query rows, head h, rt replicas of one complex from
+// trajectory blockIdx.z * rt; rt divides reps): the tile's bias rows are
+// staged once and serve every replica, which then runs as in attn_kernel.
+__global__ void __launch_bounds__(128)
+attn_rt_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
+               const bf16* __restrict__ vv, const bf16* __restrict__ bias,
+               bf16* __restrict__ o, bf16* __restrict__ alpha, int L, int H,
+               int reps, int rt) {
+  extern __shared__ __align__(128) unsigned char smraw[];
+  const int BLD = L + 8;
+  bf16* Bs = reinterpret_cast<bf16*>(smraw + attn_smem(L));
+  const int n0 = blockIdx.z * rt, h = blockIdx.y, i0 = blockIdx.x * AQ;
+  const bf16* bsrc = bias + ((size_t)(n0 / reps) * H + h) * L * L;
+  const int chunks = L / 8;
+  for (int idx = threadIdx.x; idx < AQ * chunks; idx += blockDim.x) {
+    int r = idx / chunks, cc = (idx % chunks) * 8, i = i0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (i < L) val = *reinterpret_cast<const uint4*>(&bsrc[(size_t)i * L + cc]);
+    *reinterpret_cast<uint4*>(&Bs[r * BLD + cc]) = val;
+  }
+  // attn_tile's barrier after its staging publishes Bs as well.
+  for (int r = 0; r < rt; ++r) {
+    if (r) __syncthreads();     // the previous replica's K, V are read
+    attn_tile<0>(qa, ka, vv, Bs, BLD, o, alpha, L, H, reps, n0 + r, h, i0,
+                 smraw);
   }
 }
 
@@ -476,6 +627,7 @@ p2n_kernel(const bf16* __restrict__ alpha, const bf16* __restrict__ z,
 // One block per row. Feature row layout (the module's planar out_transform
 // rows): [p2n (H*CZ, written by p2n_kernel) | node (H*VD) | points local
 // [x|y|z] (3*H*NPV) | distance (H*NPV) | direction [x|y|z] (3*H*NPV)].
+template <int ABL>
 __global__ void __launch_bounds__(128)
 feat_kernel(const bf16* __restrict__ o, const float* __restrict__ R9,
             const float* __restrict__ tr, bf16* __restrict__ feat, int ko,
@@ -495,10 +647,15 @@ feat_kernel(const bf16* __restrict__ o, const float* __restrict__ R9,
   for (int idx = tid; idx < HPV; idx += blockDim.x) {
     const int h = idx / NPV, p = idx % NPV;
     const bf16* pt = orow + h * SLOT + VD + p;
-    float d0 = bf(pt[0]) - t[0], d1 = bf(pt[NPV]) - t[1], d2 = bf(pt[2 * NPV]) - t[2];
     float l[3];
+    if constexpr ((ABL & ABL_SKIP_ROT) != 0) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) l[c] = R[c] * d0 + R[3 + c] * d1 + R[6 + c] * d2;
+      for (int c = 0; c < 3; ++c) l[c] = bf(pt[c * NPV]);
+    } else {
+      float d0 = bf(pt[0]) - t[0], d1 = bf(pt[NPV]) - t[1], d2 = bf(pt[2 * NPV]) - t[2];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) l[c] = R[c] * d0 + R[3 + c] * d1 + R[6 + c] * d2;
+    }
     float ss = l[0] * l[0] + l[1] * l[1] + l[2] * l[2];
     float inv = 1.0f / (sqrtf(ss + 1e-8f) + 1e-4f);
 #pragma unroll
@@ -508,6 +665,22 @@ feat_kernel(const bf16* __restrict__ o, const float* __restrict__ R9,
     }
     frow[b2 + idx] = tobf(sqrtf(ss + 1e-12f));
   }
+}
+
+// S4's fake_feat: the rest = ko - H*CZ feature columns of each row take
+// [o | o[:, :rest - H*SLOT]], 16 bytes a thread, read and written in order
+// (ko, H*CZ and H*SLOT are multiples of 8 elements, as rest is).
+__global__ void __launch_bounds__(256)
+fake_feat_kernel(const bf16* __restrict__ o, bf16* __restrict__ feat,
+                 size_t vecs, int ko, int H) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= vecs) return;
+  const int ov = H * SLOT / 8, fv = (ko - H * CZ) / 8;
+  const size_t row = idx / fv;
+  const int v = (int)(idx % fv);
+  const uint4* src = reinterpret_cast<const uint4*>(o + row * H * SLOT);
+  uint4* dst = reinterpret_cast<uint4*>(feat + row * ko + H * CZ);
+  dst[v] = src[v < ov ? v : v - ov];
 }
 
 // ------------------------------------------------------------- host side
@@ -537,34 +710,37 @@ size_t carve(unsigned char* base, int N, int L, int H, int pw, int ko,
   return off;
 }
 
-size_t attn_smem(int L) {
-  return (size_t)2 * L * KLD * 2 + (size_t)AQ * KLD * 2 + (size_t)AQ * attn_sld(L) * 4 +
-         (size_t)AQ * (L + 8) * 2;
-}
-
 size_t p2n_smem(int L) {
   return (size_t)L * KLD * 2 + (size_t)64 * (L + 8) * 2 + (size_t)64 * OLD * 4;
 }
 
-}  // namespace
+// The arguments of one layer (gablock_forward's, in its order).
+struct LayerArgs {
+  const float *x, *R9, *t;
+  const bf16 *z, *bias;
+  const float* mask;
+  const bf16* w_proj;
+  int pw;
+  const float* coef;
+  const bf16* w_out;
+  int ko;
+  const float *b_out, *ln1;
+  const bf16 *w_m1, *w_m2, *w_m3;
+  const float *b_m, *ln2;
+  float* out;
+  void* workspace;
+  int N, L, H, reps;
+  cudaStream_t stream;
+};
 
-extern "C" size_t gablock_workspace_bytes(int N, int L, int H, int pw, int ko) {
+// One layer with the ablation mask ABL (0: the layer itself); rt >= 1 runs
+// the attention as attn_rt_kernel over rt replicas (S4's v3).
+template <int ABL>
+int forward_impl(const LayerArgs& a, int rt) {
+  cudaStream_t stream = a.stream;
+  const int N = a.N, L = a.L, H = a.H, reps = a.reps, pw = a.pw, ko = a.ko;
   Workspace w;
-  return carve(nullptr, N, L, H, pw, ko, &w);
-}
-
-// Runs one GABlock layer on `stream`. Returns the first non-zero
-// cudaGetLastError() after a launch (0 when every launch was accepted).
-extern "C" int gablock_forward(
-    const float* x, const float* R9, const float* t, const bf16* z,
-    const bf16* bias, const float* mask, const bf16* w_proj, int pw,
-    const float* coef, const bf16* w_out, int ko, const float* b_out,
-    const float* ln1, const bf16* w_m1, const bf16* w_m2, const bf16* w_m3,
-    const float* b_m, const float* ln2, float* out, void* workspace, int N,
-    int L, int H, int reps, void* stream_ptr) {
-  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  Workspace w;
-  carve(reinterpret_cast<unsigned char*>(workspace), N, L, H, pw, ko, &w);
+  carve(reinterpret_cast<unsigned char*>(a.workspace), N, L, H, pw, ko, &w);
   const int M = N * L, Nc = N / reps;
   const int mt = (M + GBM - 1) / GBM;
   cudaError_t err;
@@ -578,68 +754,145 @@ extern "C" int gablock_forward(
   ep.out_bf16 = w.proj;
   ep.ldo = pw;
   gemm_kernel<float, EPI_BF16><<<dim3(pw / GBN, mt), 256, 0, stream>>>(
-      x, FD, w_proj, pw, M, FD, ep);
+      a.x, FD, a.w_proj, pw, M, FD, ep);
   GB_CHECK();
 
   const int npts = 2 * H * NP + H * NPV;
-  assemble_kernel<<<M, 256, (3 * npts + 2 * H) * sizeof(float), stream>>>(
-      w.proj, pw, R9, t, coef, H, w.qa, w.ka, w.vv);
+  assemble_kernel<ABL & ABL_ASSEMBLE><<<M, 256, (3 * npts + 2 * H) * sizeof(float), stream>>>(
+      w.proj, pw, a.R9, a.t, a.coef, H, w.qa, w.ka, w.vv);
   GB_CHECK();
 
-  const size_t asm_bytes = attn_smem(L);
-  cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)asm_bytes);
-  GB_CHECK();
-  attn_kernel<<<dim3((L + AQ - 1) / AQ, H, N), 128, asm_bytes, stream>>>(
-      w.qa, w.ka, w.vv, bias, w.o, w.alpha, L, H, reps);
+  const dim3 attn_grid((L + AQ - 1) / AQ, H, rt > 0 ? N / rt : N);
+  if (rt > 0) {
+    const size_t bytes = attn_rt_smem(L);
+    cudaFuncSetAttribute(attn_rt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+    GB_CHECK();
+    attn_rt_kernel<<<attn_grid, 128, bytes, stream>>>(
+        w.qa, w.ka, w.vv, a.bias, w.o, w.alpha, L, H, reps, rt);
+  } else {
+    const size_t bytes = attn_smem(L);
+    cudaFuncSetAttribute(attn_kernel<ABL & ABL_ATTN>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    GB_CHECK();
+    attn_kernel<ABL & ABL_ATTN><<<attn_grid, 128, bytes, stream>>>(
+        w.qa, w.ka, w.vv, a.bias, w.o, w.alpha, L, H, reps);
+  }
   GB_CHECK();
 
-  const size_t p2n_bytes = p2n_smem(L);
-  cudaFuncSetAttribute(p2n_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)p2n_bytes);
-  GB_CHECK();
-  p2n_kernel<<<dim3((reps * H + 63) / 64, L, Nc), 128, p2n_bytes, stream>>>(
-      w.alpha, z, w.feat, ko, L, H, reps);
-  GB_CHECK();
+  if constexpr ((ABL & ABL_SKIP_P2N) != 0) {
+    err = cudaMemset2DAsync(w.feat, (size_t)ko * 2, 0, (size_t)H * CZ * 2, M, stream);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    const size_t p2n_bytes = p2n_smem(L);
+    cudaFuncSetAttribute(p2n_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)p2n_bytes);
+    GB_CHECK();
+    p2n_kernel<<<dim3((reps * H + 63) / 64, L, Nc), 128, p2n_bytes, stream>>>(
+        w.alpha, a.z, w.feat, ko, L, H, reps);
+    GB_CHECK();
+  }
 
-  feat_kernel<<<M, 128, 0, stream>>>(w.o, R9, t, w.feat, ko, H);
-  GB_CHECK();
+  if constexpr ((ABL & ABL_FAKE_FEAT) != 0) {
+    const size_t vecs = (size_t)M * (ko - H * CZ) / 8;
+    fake_feat_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(
+        w.o, w.feat, vecs, ko, H);
+    GB_CHECK();
+  } else {
+    feat_kernel<ABL & ABL_FEAT><<<M, 128, 0, stream>>>(w.o, a.R9, a.t, w.feat, ko, H);
+    GB_CHECK();
+  }
 
+  constexpr bool kSkipMlp = (ABL & ABL_SKIP_MLP) != 0;
   ep = Epi{};
-  ep.bias = b_out;
-  ep.resid = x;
-  ep.rowmask = mask;
-  ep.ln = ln1;
-  ep.out_f32 = w.x1;
-  ep.out_bf16 = w.x1b;
-  gemm_kernel<bf16, EPI_LN><<<dim3(1, mt), 256, 0, stream>>>(w.feat, ko, w_out,
+  ep.bias = a.b_out;
+  ep.resid = a.x;
+  ep.rowmask = a.mask;
+  ep.ln = a.ln1;
+  ep.out_f32 = kSkipMlp ? a.out : w.x1;
+  ep.out_bf16 = kSkipMlp ? nullptr : w.x1b;
+  gemm_kernel<bf16, EPI_LN><<<dim3(1, mt), 256, 0, stream>>>(w.feat, ko, a.w_out,
                                                              FD, M, ko, ep);
   GB_CHECK();
+  if constexpr (kSkipMlp) return 0;
 
   ep = Epi{};
-  ep.bias = b_m;
+  ep.bias = a.b_m;
   ep.relu = 1;
   ep.out_bf16 = w.h1;
   ep.ldo = FD;
-  gemm_kernel<bf16, EPI_BF16><<<dim3(1, mt), 256, 0, stream>>>(w.x1b, FD, w_m1,
+  gemm_kernel<bf16, EPI_BF16><<<dim3(1, mt), 256, 0, stream>>>(w.x1b, FD, a.w_m1,
                                                                FD, M, FD, ep);
   GB_CHECK();
-  ep.bias = b_m + FD;
+  ep.bias = a.b_m + FD;
   ep.out_bf16 = w.h2;
-  gemm_kernel<bf16, EPI_BF16><<<dim3(1, mt), 256, 0, stream>>>(w.h1, FD, w_m2,
+  gemm_kernel<bf16, EPI_BF16><<<dim3(1, mt), 256, 0, stream>>>(w.h1, FD, a.w_m2,
                                                                FD, M, FD, ep);
   GB_CHECK();
 
   ep = Epi{};
-  ep.bias = b_m + 2 * FD;
+  ep.bias = a.b_m + 2 * FD;
   ep.resid = w.x1;
-  ep.ln = ln2;
-  ep.out_f32 = out;
-  gemm_kernel<bf16, EPI_LN><<<dim3(1, mt), 256, 0, stream>>>(w.h2, FD, w_m3, FD,
+  ep.ln = a.ln2;
+  ep.out_f32 = a.out;
+  gemm_kernel<bf16, EPI_LN><<<dim3(1, mt), 256, 0, stream>>>(w.h2, FD, a.w_m3, FD,
                                                              M, FD, ep);
   GB_CHECK();
 #undef GB_CHECK
   return 0;
+}
+
+}  // namespace
+
+extern "C" size_t gablock_workspace_bytes(int N, int L, int H, int pw, int ko) {
+  Workspace w;
+  return carve(nullptr, N, L, H, pw, ko, &w);
+}
+
+#define GB_LAYER_PARAMS                                                       \
+  const float *x, const float *R9, const float *t, const bf16 *z,             \
+      const bf16 *bias, const float *mask, const bf16 *w_proj, int pw,        \
+      const float *coef, const bf16 *w_out, int ko, const float *b_out,       \
+      const float *ln1, const bf16 *w_m1, const bf16 *w_m2, const bf16 *w_m3, \
+      const float *b_m, const float *ln2, float *out, void *workspace, int N, \
+      int L, int H, int reps, void *stream_ptr
+#define GB_LAYER_ARGS                                                         \
+  LayerArgs{x, R9, t, z, bias, mask, w_proj, pw, coef, w_out, ko, b_out, ln1, \
+            w_m1, w_m2, w_m3, b_m, ln2, out, workspace, N, L, H, reps,        \
+            reinterpret_cast<cudaStream_t>(stream_ptr)}
+
+// Runs one GABlock layer on `stream`. Returns the first non-zero
+// cudaGetLastError() after a launch (0 when every launch was accepted).
+extern "C" int gablock_forward(GB_LAYER_PARAMS) {
+  return forward_impl<0>(GB_LAYER_ARGS, 0);
+}
+
+// S4: one layer as gablock_forward, with the ablation mask `abl` (a mask the
+// switch lists) or, with abl = 0 and rt >= 1 dividing reps, v3's attention
+// over rt replicas. Anything else returns cudaErrorInvalidValue.
+extern "C" int gablock_forward_variant(GB_LAYER_PARAMS, int abl, int rt) {
+  const LayerArgs a = GB_LAYER_ARGS;
+  if (rt < 0 || (rt > 0 && (abl != 0 || reps % rt != 0)))
+    return (int)cudaErrorInvalidValue;
+  switch (abl) {
+#define GB_CASE(m) \
+  case m:          \
+    return forward_impl<m>(a, rt);
+    GB_CASE(0)
+    GB_CASE(ABL_SKIP_P2N)
+    GB_CASE(ABL_FAKE_SOFTMAX)
+    GB_CASE(ABL_FAKE_ALPHA)
+    GB_CASE(ABL_SKIP_ROT)
+    GB_CASE(ABL_SKIP_MLP)
+    GB_CASE(ABL_SKIP_SQ)
+    GB_CASE(ABL_FAKE_FEAT)
+    GB_CASE(ABL_SKIP_VALUES)
+    GB_CASE(ABL_THIN_OPS)
+    GB_CASE(ABL_FLOOR)
+#undef GB_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* gablock_error_string(int err) {

@@ -5,7 +5,8 @@ PyTorch versions.
 Counterpart of ``ab_opt_tpu/ops/gablock_pallas.py`` (``_gablock_kernel``,
 ``fused_gablock_layer``, ``build_gablock_weights``; ``_encoder_chain_kernel``,
 ``fused_encoder_chained``, ``stack_encoder_weights``). The kernel sources
-are ``csrc/gablock.cu`` and ``csrc/gablock_chain.cu``; each is compiled
+are ``csrc/gablock.cu`` (which also runs the variant harness S4,
+:mod:`.gablock_variants`) and ``csrc/gablock_chain.cu``; each is compiled
 with ``nvcc`` for ``sm_90a`` into ``_build/`` at first use and loaded with
 ``ctypes``.
 
@@ -149,7 +150,10 @@ def gablock_layer_reference(x, R9, t, z, bias, mask, wb, reps: int = 1,
 gablock_layer_reference.calls = 0
 
 
-def _layer_math(x, R9, t, z, bias, mask, wb, reps, dtype):
+def _layer_math(x, R9, t, z, bias, mask, wb, reps, dtype, abl=frozenset()):
+    """The layer; ``abl``, a set of the phase-ablation flags of
+    :mod:`.gablock_variants`, skips or fakes the phases it names (one line
+    each, marked ``abl``). The empty set is the layer itself."""
     dt = dtype or wb['w_proj'].dtype
     f32 = torch.float32
     rnd = lambda a: a.to(dt).to(f32)
@@ -167,14 +171,21 @@ def _layer_math(x, R9, t, z, bias, mask, wb, reps, dtype):
     q, k, v, qp, kp, vp = torch.split(proj[..., :sum(sizes)], sizes, -1)
     to_global = lambda p, n: (
         torch.einsum('nlcd,nldk->nlck', Rm, p.reshape(N, L, 3, n)) + tt)
+    if 'skip_rot' in abl:                                      # abl
+        to_global = lambda p, n: p.reshape(N, L, 3, n)
     per_head = lambda g, n: g.reshape(N, L, 3, H, n).permute(0, 1, 3, 2, 4)
-    qg = per_head(to_global(qp, HP), P)                        # (N, L, H, 3, P)
-    kg = per_head(to_global(kp, HP), P)
+    qgp, kgp = to_global(qp, HP), to_global(kp, HP)            # (N, L, 3, HP)
+    qg, kg = per_head(qgp, P), per_head(kgp, P)              # (N, L, H, 3, P)
     vg = per_head(to_global(vp, HPV), PV)
 
     coef = wb['coef'].to(f32)                                  # (H,)
     sq_q = qg.square().sum((3, 4))                             # (N, L, H)
     sq_k = kg.square().sum((3, 4))
+    if 'skip_sq' in abl:                                       # abl
+        sq_q, sq_k = qgp[:, :, 0, :H], kgp[:, :, 0, :H]
+    if 'thin_ops' in abl:                                      # abl
+        qg, kg, vg, sq_q, sq_k = map(torch.zeros_like,
+                                     (qg, kg, vg, sq_q, sq_k))
     ones = torch.ones_like(sq_q)
     qa = rnd(torch.cat([
         q.reshape(N, L, H, QK) / math.sqrt(3.0 * QK),
@@ -185,27 +196,45 @@ def _layer_math(x, R9, t, z, bias, mask, wb, reps, dtype):
     vv = rnd(torch.cat([v.reshape(N, L, H, V), vg.reshape(N, L, H, 3 * PV)],
                        -1))
 
+    bias_n = bias.to(f32)[:, None].expand(Nc, reps, H, L, L)
     logits = torch.einsum('nihd,njhd->nhij', qa, ka)
-    logits = (logits.reshape(Nc, reps, H, L, L)
-              + bias.to(f32)[:, None]).reshape(N, H, L, L)
+    logits = (logits.reshape(Nc, reps, H, L, L) + bias_n).reshape(N, H, L, L)
     alpha = rnd(torch.softmax(logits, dim=-1))
+    if 'fake_softmax' in abl:                                  # abl
+        alpha = rnd(0.01 * logits)
+    if 'fake_alpha' in abl:                                    # abl
+        alpha = rnd(0.01 * bias_n.reshape(N, H, L, L))
     out = rnd(torch.einsum('nhij,njhd->nihd', alpha, vv))      # (N, L, H, .)
+    if 'skip_values' in abl:                                   # abl
+        out = vv
     p2n = rnd(torch.einsum('crhij,cijd->crihd',
                            alpha.reshape(Nc, reps, H, L, L), z.to(f32)))
     p2n = p2n.reshape(N, L, -1)
+    if 'skip_p2n' in abl:                                      # abl
+        p2n = torch.zeros_like(p2n)
 
     node = out[..., :V].reshape(N, L, H * V)
     og = out[..., V:].reshape(N, L, H, 3, PV).permute(0, 1, 3, 2, 4)
     loc = torch.einsum('nldc,nldk->nlck', Rm,
                        og.reshape(N, L, 3, HPV) - tt)          # R^T (g - t)
+    if 'skip_rot' in abl:                                      # abl
+        loc = og.reshape(N, L, 3, HPV)
     ss = loc.square().sum(2)
     dist = torch.sqrt(ss + 1e-12)
     dirn = loc / (torch.sqrt(ss + 1e-8) + 1e-4)[:, :, None]
     feat = torch.cat([p2n, node, loc.reshape(N, L, -1), dist,
                       dirn.reshape(N, L, -1)], -1)
+    if 'fake_feat' in abl:                                     # abl
+        # o in its 64-wide slots [V | x | y | z points | zero pad], then
+        # its first columns again, up to the H (V + 7 PV) feature columns.
+        o64 = torch.nn.functional.pad(out, (0, 64 - out.shape[-1]))
+        o64 = o64.reshape(N, L, H * 64)
+        feat = torch.cat([p2n, o64, o64[..., :H * (V + 7 * PV - 64)]], -1)
 
     y = (mm(feat, wb['w_out']) + wb['b_out']) * mask.to(f32)[..., None]
     x1 = _layernorm(x + y, wb['ln1'])
+    if 'skip_mlp' in abl:                                      # abl
+        return x1
     h1 = torch.relu(mm(x1, wb['w_m1']) + wb['b_m'][0])
     h2 = torch.relu(mm(h1, wb['w_m2']) + wb['b_m'][1])
     h3 = mm(h2, wb['w_m3']) + wb['b_m'][2]
@@ -242,6 +271,9 @@ def _library():
     lib.gablock_forward.argtypes = ([P] * 7 + [I] + [P] * 2 + [I] + [P] * 9
                                     + [I] * 4 + [P])
     lib.gablock_forward.restype = I
+    lib.gablock_forward_variant.argtypes = (lib.gablock_forward.argtypes
+                                            + [I] * 2)
+    lib.gablock_forward_variant.restype = I
     lib.gablock_error_string.argtypes = [I]
     lib.gablock_error_string.restype = ctypes.c_char_p
     return lib
@@ -322,6 +354,15 @@ def gablock_layer(x, R9, t, z, bias, mask, wb, reps: int = 1):
     if x.device.type == 'cpu':
         return gablock_layer_reference(x, R9, t, z, bias, mask, wb, reps)
     _check_inputs(x, R9, t, z, bias, mask, wb, reps)
+    out = _launch_layer('gablock_forward', x, R9, t, z, bias, mask, wb, reps)
+    gablock_layer.launches += 1
+    return out
+
+
+def _launch_layer(entry: str, x, R9, t, z, bias, mask, wb, reps, *extra):
+    """One launch of the layer entry ``entry`` of ``csrc/gablock.cu``
+    (``gablock_forward``, or ``gablock_forward_variant`` with ``extra``
+    (abl, rt)) on checked CUDA inputs; raises if a launch was refused."""
     lib = _library()
     N, L, F = x.shape
     H = wb['dims'][0]
@@ -331,18 +372,17 @@ def gablock_layer(x, R9, t, z, bias, mask, wb, reps: int = 1):
                          dtype=torch.uint8, device=x.device)
         out = torch.empty_like(x)
         ptr = lambda a: a.data_ptr()
-        err = lib.gablock_forward(
+        err = getattr(lib, entry)(
             ptr(x), ptr(R9), ptr(t), ptr(z), ptr(bias), ptr(mask),
             ptr(wb['w_proj']), pw, ptr(wb['coef']), ptr(wb['w_out']), ko,
             ptr(wb['b_out']), ptr(wb['ln1']), ptr(wb['w_m1']),
             ptr(wb['w_m2']), ptr(wb['w_m3']), ptr(wb['b_m']),
             ptr(wb['ln2']), ptr(out), ptr(ws), N, L, H, reps,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            torch.cuda.current_stream(x.device).cuda_stream, *extra)
     if err != 0:
         msg = lib.gablock_error_string(err).decode()
         raise RuntimeError(f'gablock kernel launch failed: CUDA error {err} '
                            f'({msg})')
-    gablock_layer.launches += 1
     return out
 
 

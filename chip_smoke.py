@@ -5,8 +5,8 @@ Phases, each fatal on failure:
      TF32 off;
   2. build: compile every kernel source in ab_opt_tpu_torch/csrc (the
      GABlock kernel K1, the IPA attention kernels K2/K3/K4, the chained
-     encoder kernel K5, the attention variants S1-S3), one nvcc per
-     source, all started together;
+     encoder kernel K5, the attention variants S1-S3; S4 lives in K1's
+     source), one nvcc per source, all started together;
   3. K1 vs plain: the GABlock kernel against its plain PyTorch version
      at the sampler's widths (F=128, Cz=64, H=12, L=128), bf16, atol/rtol
      0.05 on valid rows, cases (Nc=1, reps=32), (Nc=2, reps=4, 8 padded
@@ -68,7 +68,18 @@ Phases, each fatal on failure:
      (utils/micro_attention.py) at the first case with the counts zeroed
      before it: exactly one warm-up and VARIANT_ITERS timed launches of each
      variant; the plain versions' times, the bounds, and the library
-     yardstick for v3 (scaled_dot_product_attention).
+     yardstick for v3 (scaled_dot_product_attention);
+ 12. the fused-GABlock variants (S4, in csrc/gablock.cu): v3 vs K1's
+     plain version (and vs K1, printed) and each ablation mask (each flag
+     with a counterpart, the floor) vs the plain version with the same
+     flags, at (Nc=1, reps=256, rt=4), the harness's shape, and (Nc=2,
+     reps=4, rt=2, 8 padded rows), L=128, all under K1's gate (atol/rtol
+     0.05 on valid rows); then the variants' own path, the harness
+     (utils/micro_fused.py) at the first case with the counts zeroed
+     before it: exactly one warm-up and FUSED_ROUNDS x FUSED_ITERS chained
+     layers of K1, v3, the abl baseline, each flag and the floor, and no
+     plain call; the plain time, K1's bound (the same work), and one K1
+     layer's launches under torch.profiler.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds.
 
@@ -105,6 +116,11 @@ CHAIN_FANOUTS = (256, 32)
 # hides.
 VARIANT_CASES = ((256, 256, L, 0), (3, 3, 48, 5))
 VARIANT_ITERS = 20
+# S4: (Nc, reps, rt, padded rows); the first is the script's point and is
+# timed, the second masks padded rows. Both hold v3 and every ablation mask.
+FUSED_CASES = ((1, 256, 4, 0), (2, 4, 2, 8))
+FUSED_ITERS = 30
+FUSED_ROUNDS = 4
 # Kernel vs plain training step. First measured on an H100 (bf16, the
 # slice's step): losses within 5.7e-5 relative, gradient cosine 0.99975,
 # global norms within 9.6e-4; the bounds keep a 10-20x margin.
@@ -202,6 +218,16 @@ def _chain_bound(args):
                   _nbytes(x, R9, t, mask, z, biases, *weights, x))
 
 
+def _k1_gate(got, ref, valid):
+    """K1's gate on valid rows: finite, and within TOL of the reference
+    plus TOL of its magnitude. Returns (max_abs_err, ok)."""
+    import torch
+    err = (got[valid] - ref[valid]).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (err <= TOL + TOL * ref[valid].abs()).all())
+    return float(err.max()), ok
+
+
 def phase_kernel(device):
     """Kernel vs plain version at the sampler's shapes, then their times.
     Returns (max_abs_err, {reps: (kernel_ms, plain_ms)},
@@ -216,11 +242,7 @@ def phase_kernel(device):
         got = gablock_layer(*args)
         torch.cuda.synchronize()
         ref = gablock_layer_reference(*args)
-        valid = args[5] > 0
-        err = (got[valid] - ref[valid]).abs()
-        max_err = float(err.max())
-        ok = bool(torch.isfinite(got).all()) and bool(
-            (err <= TOL + TOL * ref[valid].abs()).all())
+        max_err, ok = _k1_gate(got, ref, args[5] > 0)
         print(f'kernel vs plain (Nc={Nc}, reps={reps}, padded rows={n_pad}):'
               f' max_abs_err={max_err:.6f} ok={ok}')
         if not ok:
@@ -714,12 +736,11 @@ def phase_chain_kernel(device):
         got, k1 = kern(), six_k1()
         torch.cuda.synchronize()
         ref = plain()
-        valid = mask > 0
-        errs, ok = [], bool(torch.isfinite(got).all())
+        errs, ok = [], True
         for want in (ref, k1):
-            err = (got[valid] - want[valid]).abs()
-            errs.append(float(err.max()))
-            ok = ok and bool((err <= TOL + TOL * want[valid].abs()).all())
+            err, ok_want = _k1_gate(got, want, mask > 0)
+            errs.append(err)
+            ok = ok and ok_want
         print(f'K5 vs plain, vs six K1 launches (Nc={Nc}, reps={reps}, '
               f'padded rows={n_pad}, {LAYERS} layers): max_abs_err '
               f'{errs[0]:.6f}, {errs[1]:.6f} ok={ok}')
@@ -915,6 +936,83 @@ def phase_variants(device):
     return res
 
 
+def phase_fused_variants(device):
+    """S4 vs its plain versions, then the harness's run and the times (see
+    the module docstring, phase 12). Returns {'v3': row, 'abl': row} with
+    launches, max_abs_err, ms, plain_ms, bound_ms, bound_by and
+    library_ms."""
+    import torch
+    from ab_opt_tpu_torch.ops import gablock as gb
+    from ab_opt_tpu_torch.ops import gablock_variants as gv
+    from ab_opt_tpu_torch.utils import micro_fused as mf
+    torch.set_grad_enabled(False)
+    t0 = time.perf_counter()
+
+    def gate(got, ref, valid, what):
+        err, ok = _k1_gate(got, ref, valid)
+        print(f'{what}: max_abs_err={err:.6f} ok={ok}')
+        if not ok:
+            raise SystemExit(f'{what} disagrees with its plain version')
+        return err
+
+    res = {k: {'max_abs_err': 0.0} for k in ('v3', 'abl')}
+    cases = {}
+    for Nc, reps, rt, n_pad in FUSED_CASES:
+        args = mf.make_case(Nc, reps, L, device, n_pad, seed=20 + Nc + reps)
+        valid = args[5] > 0
+        ref = gb.gablock_layer_reference(*args)
+        got = gv.gablock_layer_v3(*args, rt=rt)
+        torch.cuda.synchronize()
+        res['v3']['max_abs_err'] = max(res['v3']['max_abs_err'], gate(
+            got, ref, valid, f'v3 vs plain (Nc={Nc}, reps={reps}, rt={rt}, '
+                             f'padded rows={n_pad})'))
+        d_k1 = float((got - gb.gablock_layer(*args)).abs().max())
+        print(f'v3 vs K1: max |d|={d_k1} (the same arithmetic, the bias rows '
+              'from shared memory)')
+        cases[(Nc, reps)] = args
+        for flags in gv.ABLATIONS:
+            name = 'floor' if flags == gv.FLOOR else flags[0]
+            got = gv.gablock_layer_abl(*args, flags=flags)
+            torch.cuda.synchronize()
+            ref = gv.gablock_layer_abl_reference(*args, flags=flags)
+            res['abl']['max_abs_err'] = max(res['abl']['max_abs_err'], gate(
+                got, ref, valid, f'abl {name} (mask {gv.abl_mask(flags)}) vs '
+                                 f'plain (Nc={Nc}, reps={reps}, padded '
+                                 f'rows={n_pad})'))
+
+    # The variants' own path: the harness, counts zeroed just before it.
+    Nc, reps, rt, _ = FUSED_CASES[0]
+    args = cases[(Nc, reps)]
+    gv.reset_counts()
+    gb.reset_counts()
+    rounds = mf.time_variants(args, rt, iters=FUSED_ITERS,
+                              rounds=FUSED_ROUNDS)
+    counts = dict(gv.launches)
+    k1, plain = gb.gablock_layer.launches, (
+        gb.gablock_layer_reference.calls
+        + gv.gablock_layer_abl_reference.calls)
+    n = FUSED_ROUNDS * FUSED_ITERS + 1
+    print(f'harness at Nc={Nc}, reps={reps}, rt={rt}, L={L}: launches v3 '
+          f'{counts["v3"]}, abl {counts["abl"]}, K1 {k1}, plain calls {plain}')
+    mf.report(rounds, mf.profile_layer(args))
+    ms = mf.medians(rounds)
+    if (counts, k1, plain) != ({'v3': n, 'abl': n * (len(gv.ABLATIONS) + 1)},
+                               n, 0):
+        raise SystemExit('the S4 harness launched the variants '
+                         f'{counts}, K1 {k1} and the plain versions {plain} '
+                         f'times, not {n} a variant')
+    plain_ms = _cuda_ms(lambda: gb.gablock_layer_reference(*args), 3)
+    bound = _gablock_bound(args)
+    for key, name in (('v3', f'v3 rt={rt}'), ('abl', 'abl baseline')):
+        res[key].update(launches=counts[key], ms=ms[name], plain_ms=plain_ms,
+                        bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+    print(f'S4 ms per layer at reps={reps}: K1 {ms["K1"]:.4f}, v3 '
+          f'{ms[f"v3 rt={rt}"]:.4f}, abl baseline {ms["abl baseline"]:.4f}, '
+          f'plain {plain_ms:.4f}, bound {bound[0]:.4f} ({bound[1]})')
+    print(f'phase 12: {time.perf_counter() - t0:.2f} s')
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -947,6 +1045,7 @@ def main():
     chain = phase_chain_kernel(device)
     k5 = phase_chain(model, batch, k1_rates)
     variants = phase_variants(device)
+    fused = phase_fused_variants(device)
 
     kernels = [dict(
         name='gablock', route='cuda', source='ab_opt_tpu_torch/csrc/gablock.cu',
@@ -976,6 +1075,11 @@ def main():
             source='ab_opt_tpu_torch/csrc/attention_variants.cu',
             replaces=f'scripts/micro_kernel_variants.py:{line}',
             **variants[name]))
+    for key, line in (('v3', 48), ('abl', 264)):
+        kernels.append(dict(
+            name=f'gablock_{key}', route='cuda',
+            source='ab_opt_tpu_torch/csrc/gablock.cu',
+            replaces=f'scripts/micro_fused_variants.py:{line}', **fused[key]))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

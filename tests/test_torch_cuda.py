@@ -1,5 +1,6 @@
 """The GABlock kernel (K1), the IPA attention kernels (K2, K3, K4), the
-chained encoder kernel (K5) and the attention variants (S1-S3)
+chained encoder kernel (K5), the attention variants (S1-S3) and the
+fused-GABlock variants (S4)
 against their plain versions, on an NVIDIA GPU (marker
 ``cuda``; skips without a card). Imports no JAX, so it also runs where only
 the port is installed:
@@ -12,6 +13,7 @@ import torch
 from ab_opt_tpu_torch.geometry import quaternion_to_rotation_matrix
 from ab_opt_tpu_torch.nn.ipa import GABlock, precompute_pair_bias
 from ab_opt_tpu_torch.ops import gablock as gb
+from ab_opt_tpu_torch.ops import gablock_variants as gv
 from ab_opt_tpu_torch.utils.bench_fixture import encoder_case
 
 
@@ -274,3 +276,75 @@ def test_attention_variants_refuse_on_card():
         with pytest.raises(ValueError, match='past the cap'):
             call()
     assert av.launches == {'v1': 0, 'v3': 0, 'v2': 0, 'v4': 0}
+
+
+def _gablock_case(L, Nc, reps):
+    """One seeded GABlock layer at the sampler's widths (H=12), 5 padded
+    rows a complex: the arguments of gablock_layer."""
+    from ab_opt_tpu_torch.utils.micro_fused import make_case
+    return make_case(Nc, reps, L, torch.device('cuda'), n_pad=5,
+                     seed=L + reps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L,Nc,reps,rt', [
+    (L, Nc, reps, rt) for L in (16, 48, 128) for Nc, reps, rt in
+    ((2, 4, 2), (1, 8, 4))])
+def test_gablock_v3_matches_plain_on_card(L, Nc, reps, rt):
+    """S4's v3 (attention over rt replicas) against K1's plain version,
+    bf16, 5 padded rows a complex, atol/rtol 0.05 on valid rows; one v3
+    launch, no K1 launch and no plain call. It also equals K1 exactly: the
+    same arithmetic, with the bias rows read from shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    args = _gablock_case(L, Nc, reps)
+    gv.reset_counts()
+    gb.reset_counts()
+    with torch.no_grad():
+        got = gv.gablock_layer_v3(*args, rt=rt)
+        torch.cuda.synchronize()
+        assert (gv.launches, gb.gablock_layer.launches) == (
+            {'v3': 1, 'abl': 0}, 0)
+        assert gb.gablock_layer_reference.calls == 0
+        ref = gb.gablock_layer_reference(*args)
+        assert torch.equal(got, gb.gablock_layer(*args))
+    valid = args[5] > 0
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[valid], ref[valid], atol=0.05, rtol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('flags', gv.ABLATIONS,
+                         ids=lambda f: f[0] if len(f) == 1 else 'floor')
+def test_gablock_ablations_match_plain_on_card(flags):
+    """Each ablation mask of S4 against the plain version with the same
+    flags at L=48 (2 complexes x 3 replicas, 5 padded rows), atol/rtol 0.05
+    on valid rows; one abl launch and no plain call."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    args = _gablock_case(48, 2, 3)
+    gv.reset_counts()
+    with torch.no_grad():
+        got = gv.gablock_layer_abl(*args, flags=flags)
+        torch.cuda.synchronize()
+        assert gv.launches == {'v3': 0, 'abl': 1}
+        assert gv.gablock_layer_abl_reference.calls == 0
+        ref = gv.gablock_layer_abl_reference(*args, flags=flags)
+    valid = args[5] > 0
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[valid], ref[valid], atol=0.05, rtol=0.05)
+
+
+@pytest.mark.cuda
+def test_gablock_variant_refusals_on_card():
+    """A flag set without a mask and an rt that does not divide reps raise
+    and launch nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    args = _gablock_case(16, 1, 4)
+    gv.reset_counts()
+    with pytest.raises(ValueError, match='the kernel takes none'):
+        gv.gablock_layer_abl(*args, flags=('skip_rot', 'skip_sq'))
+    with pytest.raises(ValueError, match='rt=3 must divide'):
+        gv.gablock_layer_v3(*args, rt=3)
+    assert gv.launches == {'v3': 0, 'abl': 0}

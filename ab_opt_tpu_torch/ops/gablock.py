@@ -25,6 +25,9 @@ from a :class:`ab_opt_tpu_torch.nn.ipa.GABlock`:
 * ``w_out`` (KO, F), ``b_out``: out_transform with planar point rows;
 * ``ln1``/``ln2`` (2, F) f32 (gamma, beta); ``w_m1..3`` (F, F), ``b_m``
   (3, F) f32: the transition MLP;
+* ``w_proj_t``, ``w_out_t``, ``w_m1_t``..``w_m3_t``: the same five matrices
+  transposed, (N, K) with K contiguous, as K1's GEMM reads them (K5 and S4
+  read the (K, N) forms);
 * ``dims``: (H, QK, V, P, PV).
 
 Per-complex inputs under trajectory fan-out (row n belongs to complex
@@ -89,7 +92,7 @@ def build_gablock_weights(block, dtype=torch.bfloat16) -> dict:
 
         ln = lambda m: torch.stack([m.gamma, m.beta]).detach().to(f32)
         mlp = [block.mlp_transition[i] for i in (0, 2, 4)]
-        return {
+        wb = {
             'w_proj': w_proj.to(dtype).contiguous(),
             'coef': block.spatial_coefficient().detach().to(f32)
                     * math.sqrt(1.0 / 3.0),
@@ -103,6 +106,13 @@ def build_gablock_weights(block, dtype=torch.bfloat16) -> dict:
             'ln2': ln(block.layer_norm_2),
             'dims': (H, QK, V, P, PV),
         }
+        for name in TRANSPOSED:
+            wb[name + '_t'] = wb[name].t().contiguous()
+        return wb
+
+
+# The weight matrices K1's GEMM reads transposed (bundle key + '_t').
+TRANSPOSED = ('w_proj', 'w_out', 'w_m1', 'w_m2', 'w_m3')
 
 
 def build_encoder_weights(encoder, dtype=torch.bfloat16) -> list:
@@ -131,6 +141,55 @@ def _layernorm(x, ln):
     mean = x.mean(-1, keepdim=True)
     var = (x - mean).square().mean(-1, keepdim=True)
     return (x - mean) * torch.rsqrt(var + _LN_EPS) * ln[0] + ln[1]
+
+
+def attention_replicas(reps: int) -> int:
+    """Replicas one block of K1's attention serves (its rt): the largest of
+    4, 2 and 1 that divides ``reps``; they share the block's bias rows."""
+    return next(rt for rt in (4, 2, 1) if reps % rt == 0)
+
+
+def gablock_attention_reference(qa, ka, vv, bias, reps: int = 1):
+    """K1's attention in plain PyTorch: qa, ka, vv (N, L, H*64) and bias
+    (Nc, H, L, L) -> o (N, L, H*64) and alpha (Nc, L, reps*H, L), both in
+    the inputs' dtype. The logits, softmax and products run in f32 on the
+    inputs as given; alpha is rounded to the dtype before alpha . vv."""
+    gablock_attention_reference.calls += 1
+    f32, dt = torch.float32, qa.dtype
+    N, L, HD = qa.shape
+    H, Nc = HD // 64, N // reps
+    per_head = lambda a: a.to(f32).reshape(N, L, H, 64)
+    logits = torch.einsum('nihd,njhd->nhij', per_head(qa), per_head(ka))
+    logits = (logits.reshape(Nc, reps, H, L, L)
+              + bias.to(f32)[:, None]).reshape(N, H, L, L)
+    alpha = torch.softmax(logits, dim=-1).to(dt)
+    o = torch.einsum('nhij,njhd->nihd', alpha.to(f32), per_head(vv))
+    alpha = alpha.reshape(Nc, reps * H, L, L).transpose(1, 2).contiguous()
+    return o.reshape(N, L, HD).to(dt), alpha
+
+
+gablock_attention_reference.calls = 0
+
+
+def gablock_gemm_reference(a, w_t, bias=None, relu=False, resid=None,
+                           rowmask=None, ln=None):
+    """K1's GEMM in plain PyTorch: bf16(a) (M, K) times bf16(w_t) (N, K)
+    transposed, in f32. Without ``ln``: bf16(y + bias, ReLU if ``relu``);
+    with ``ln`` (gamma, beta): f32 LayerNorm(resid + (y + bias) * rowmask)
+    over the row."""
+    gablock_gemm_reference.calls += 1
+    f32, bf16 = torch.float32, torch.bfloat16
+    y = a.to(bf16).to(f32) @ w_t.to(bf16).to(f32).t()
+    if ln is None:
+        y = y if bias is None else y + bias
+        return (torch.relu(y) if relu else y).to(bf16)
+    y = y + bias
+    if rowmask is not None:
+        y = y * rowmask[:, None]
+    return _layernorm(resid + y, ln)
+
+
+gablock_gemm_reference.calls = 0
 
 
 def gablock_layer_reference(x, R9, t, z, bias, mask, wb, reps: int = 1,
@@ -268,20 +327,26 @@ def _library():
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.gablock_workspace_bytes.argtypes = [I, I, I, I, I]
     lib.gablock_workspace_bytes.restype = ctypes.c_size_t
-    lib.gablock_forward.argtypes = ([P] * 7 + [I] + [P] * 2 + [I] + [P] * 9
-                                    + [I] * 4 + [P])
+    layer = [P] * 7 + [I] + [P] * 2 + [I] + [P] * 9 + [I] * 4 + [P]
+    lib.gablock_forward.argtypes = layer + [I]
     lib.gablock_forward.restype = I
-    lib.gablock_forward_variant.argtypes = (lib.gablock_forward.argtypes
-                                            + [I] * 2)
+    lib.gablock_forward_variant.argtypes = layer + [I] * 2
     lib.gablock_forward_variant.restype = I
+    lib.gablock_attention.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.gablock_attention.restype = I
+    lib.gablock_gemm.argtypes = ([P, I, P] + [I] * 3 + [P, I]
+                                 + [P] * 5 + [P])
+    lib.gablock_gemm.restype = I
     lib.gablock_error_string.argtypes = [I]
     lib.gablock_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _require(cond: bool, msg: str, who: str = 'gablock_layer'):
+def _require(cond: bool, msg, who: str = 'gablock_layer'):
+    """Raise ValueError(who: msg) unless ``cond``; ``msg`` may be a callable,
+    formatted only on failure (the checks run on every launch)."""
     if not cond:
-        raise ValueError(f'{who}: {msg}')
+        raise ValueError(f'{who}: {msg() if callable(msg) else msg}')
 
 
 def _expected(x, R9, t, z, mask, wb, reps: int, lead=(),
@@ -292,18 +357,20 @@ def _expected(x, R9, t, z, mask, wb, reps: int, lead=(),
     req = lambda cond, msg: _require(cond, msg, who)
     H, QK, V, P, PV = wb['dims']
     req((QK, V, P, PV) == (32, 32, 8, 8),
-        f'head geometry {wb["dims"]} (kernel takes QK=V=32, P=PV=8)')
-    req(H % 4 == 0, f'H={H} must be a multiple of 4')
+        lambda: f'head geometry {wb["dims"]} (kernel takes QK=V=32, P=PV=8)')
+    req(H % 4 == 0, lambda: f'H={H} must be a multiple of 4')
     req(x.dim() == 3, 'x must be (N, L, F)')
     N, L, F = x.shape
-    req(F == 128, f'node width {F} (kernel takes 128)')
-    req(L % 16 == 0 and 16 <= L <= 256, f'L={L} (multiple of 16, <=256)')
-    req(reps >= 1 and N % reps == 0, f'reps={reps} must divide N={N}')
+    req(F == 128, lambda: f'node width {F} (kernel takes 128)')
+    req(L % 16 == 0 and 16 <= L <= 256,
+        lambda: f'L={L} (multiple of 16, <=256)')
+    req(reps >= 1 and N % reps == 0,
+        lambda: f'reps={reps} must divide N={N}')
     Nc = N // reps
     f32, bf16 = torch.float32, torch.bfloat16
     ko = H * (64 + V + 7 * PV)
     pw = wb['w_proj'].shape[-1]
-    req(pw % 128 == 0 and pw >= H * 168, f'w_proj width {pw}')
+    req(pw % 128 == 0 and pw >= H * 168, lambda: f'w_proj width {pw}')
     expect = {
         'x': (x, (N, L, F), f32), 'R9': (R9, (N, L, 9), f32),
         't': (t, (N, L, 3), f32), 'mask': (mask, (N, L), f32),
@@ -322,25 +389,32 @@ def _expected(x, R9, t, z, mask, wb, reps: int, lead=(),
 def _check_tensors(expect: dict, x, who: str = 'gablock_layer'):
     """Dtype, shape and contiguity of every operand, then its device."""
     for name, (a, shape, dtype) in expect.items():
-        _require(a.dtype == dtype, f'{name} dtype {a.dtype}, expected {dtype}',
-                 who)
-        _require(tuple(a.shape) == shape,
-                 f'{name} shape {tuple(a.shape)}, expected {shape}', who)
-        _require(a.is_contiguous(), f'{name} must be contiguous', who)
+        if a.dtype != dtype or a.shape != shape or not a.is_contiguous():
+            _require(a.dtype == dtype,
+                     lambda: f'{name} dtype {a.dtype}, expected {dtype}', who)
+            _require(a.shape == shape, lambda: f'{name} shape '
+                     f'{tuple(a.shape)}, expected {shape}', who)
+            _require(False, f'{name} must be contiguous', who)
+    device = x.device
     for name, (a, _, _) in expect.items():
-        _require(a.is_cuda and a.device == x.device,
-                 f'{name} must lie on the CUDA device of x, not {a.device}',
-                 who)
+        if not (a.is_cuda and a.device == device):
+            _require(False, f'{name} must lie on the CUDA device of x, not '
+                     f'{a.device}', who)
 
 
 def _check_inputs(x, R9, t, z, bias, mask, wb, reps: int):
     """Raise on anything the kernel does not take (shapes, dtypes,
-    contiguity, then device)."""
+    contiguity, then device, then the transposed weights K1 reads)."""
     expect = _expected(x, R9, t, z, mask, wb, reps)
     N, L, _ = x.shape
     H = wb['dims'][0]
     expect['bias'] = (bias, (N // reps, H, L, L), torch.bfloat16)
     _check_tensors(expect, x)
+    missing = [n + '_t' for n in TRANSPOSED if n + '_t' not in wb]
+    _require(not missing, f'the bundle lacks {missing} (build it with '
+             'build_gablock_weights)')
+    _check_tensors({n + '_t': (wb[n + '_t'], tuple(wb[n].shape[::-1]),
+                               torch.bfloat16) for n in TRANSPOSED}, x)
 
 
 def gablock_layer(x, R9, t, z, bias, mask, wb, reps: int = 1):
@@ -354,19 +428,29 @@ def gablock_layer(x, R9, t, z, bias, mask, wb, reps: int = 1):
     if x.device.type == 'cpu':
         return gablock_layer_reference(x, R9, t, z, bias, mask, wb, reps)
     _check_inputs(x, R9, t, z, bias, mask, wb, reps)
-    out = _launch_layer('gablock_forward', x, R9, t, z, bias, mask, wb, reps)
+    out = _launch_layer('gablock_forward', x, R9, t, z, bias, mask, wb, reps,
+                        attention_replicas(reps))
     gablock_layer.launches += 1
     return out
 
 
+def _launch_error(lib, err: int, what: str = 'gablock kernel'):
+    if err != 0:
+        msg = lib.gablock_error_string(err).decode()
+        raise RuntimeError(f'{what} launch failed: CUDA error {err} ({msg})')
+
+
 def _launch_layer(entry: str, x, R9, t, z, bias, mask, wb, reps, *extra):
     """One launch of the layer entry ``entry`` of ``csrc/gablock.cu``
-    (``gablock_forward``, or ``gablock_forward_variant`` with ``extra``
-    (abl, rt)) on checked CUDA inputs; raises if a launch was refused."""
+    (``gablock_forward``, K1, which reads the transposed weights, with
+    ``extra`` (rt,), or ``gablock_forward_variant`` with ``extra`` (abl,
+    rt)) on checked CUDA inputs; raises if a launch was refused."""
     lib = _library()
     N, L, F = x.shape
     H = wb['dims'][0]
     pw, ko = wb['w_proj'].shape[1], wb['w_out'].shape[0]
+    w = ((lambda n: wb[n + '_t']) if entry == 'gablock_forward'
+         else (lambda n: wb[n]))
     with torch.cuda.device(x.device):
         ws = torch.empty(lib.gablock_workspace_bytes(N, L, H, pw, ko),
                          dtype=torch.uint8, device=x.device)
@@ -374,19 +458,104 @@ def _launch_layer(entry: str, x, R9, t, z, bias, mask, wb, reps, *extra):
         ptr = lambda a: a.data_ptr()
         err = getattr(lib, entry)(
             ptr(x), ptr(R9), ptr(t), ptr(z), ptr(bias), ptr(mask),
-            ptr(wb['w_proj']), pw, ptr(wb['coef']), ptr(wb['w_out']), ko,
-            ptr(wb['b_out']), ptr(wb['ln1']), ptr(wb['w_m1']),
-            ptr(wb['w_m2']), ptr(wb['w_m3']), ptr(wb['b_m']),
+            ptr(w('w_proj')), pw, ptr(wb['coef']), ptr(w('w_out')), ko,
+            ptr(wb['b_out']), ptr(wb['ln1']), ptr(w('w_m1')),
+            ptr(w('w_m2')), ptr(w('w_m3')), ptr(wb['b_m']),
             ptr(wb['ln2']), ptr(out), ptr(ws), N, L, H, reps,
             torch.cuda.current_stream(x.device).cuda_stream, *extra)
-    if err != 0:
-        msg = lib.gablock_error_string(err).decode()
-        raise RuntimeError(f'gablock kernel launch failed: CUDA error {err} '
-                           f'({msg})')
+    _launch_error(lib, err)
     return out
 
 
 gablock_layer.launches = 0
+
+
+def gablock_attention(qa, ka, vv, bias, reps: int = 1):
+    """K1's attention launch alone (the layer runs it inside
+    :func:`gablock_layer`): bf16 qa, ka, vv (N, L, H*64) and bias (Nc, H,
+    L, L) -> o (N, L, H*64) and alpha (Nc, L, reps*H, L). A CPU ``qa``
+    takes the plain version; any other device launches the kernel (one
+    count on ``gablock_attention.launches``) or raises."""
+    who = 'gablock_attention'
+    if qa.device.type == 'cpu':
+        return gablock_attention_reference(qa, ka, vv, bias, reps)
+    _require(qa.dim() == 3 and qa.shape[-1] % 64 == 0,
+             'qa must be (N, L, H*64)', who)
+    N, L, HD = qa.shape
+    H = HD // 64
+    _require(L % 16 == 0 and 16 <= L <= 256, f'L={L} (multiple of 16, <=256)',
+             who)
+    _require(reps >= 1 and N % reps == 0, f'reps={reps} must divide N={N}',
+             who)
+    bf16 = torch.bfloat16
+    _check_tensors({'qa': (qa, (N, L, HD), bf16), 'ka': (ka, (N, L, HD), bf16),
+                    'vv': (vv, (N, L, HD), bf16),
+                    'bias': (bias, (N // reps, H, L, L), bf16)}, qa, who)
+    lib = _library()
+    with torch.cuda.device(qa.device):
+        o = torch.empty_like(qa)
+        alpha = torch.empty(N // reps, L, reps * H, L, dtype=bf16,
+                            device=qa.device)
+        err = lib.gablock_attention(
+            qa.data_ptr(), ka.data_ptr(), vv.data_ptr(), bias.data_ptr(),
+            o.data_ptr(), alpha.data_ptr(), N, L, H, reps,
+            attention_replicas(reps),
+            torch.cuda.current_stream(qa.device).cuda_stream)
+    _launch_error(lib, err, who)
+    gablock_attention.launches += 1
+    return o, alpha
+
+
+gablock_attention.launches = 0
+
+
+def gablock_gemm(a, w_t, bias=None, relu=False, resid=None, rowmask=None,
+                 ln=None):
+    """K1's GEMM alone (the layer runs it five times inside
+    :func:`gablock_layer`), :func:`gablock_gemm_reference`'s function: an
+    f32 ``a`` (M, 128) is the projection (N a multiple of 128, bf16 out);
+    a bf16 ``a`` (M, K) takes N = 128 and the bf16 or, with ``ln``, the
+    LayerNorm epilogue (f32 out). A CPU ``a`` takes the plain version; any
+    other device launches the kernel (one count on
+    ``gablock_gemm.launches``) or raises."""
+    who = 'gablock_gemm'
+    if a.device.type == 'cpu':
+        return gablock_gemm_reference(a, w_t, bias, relu, resid, rowmask, ln)
+    f32, bf16 = torch.float32, torch.bfloat16
+    _require(a.dim() == 2 and w_t.dim() == 2, 'a and w_t must be 2-d', who)
+    M, K = a.shape
+    N = w_t.shape[0]
+    proj = a.dtype == f32
+    _require(K % 8 == 0 and (K == 128 if proj else N == 128),
+             f'a {tuple(a.shape)}, w_t {tuple(w_t.shape)}: the projection '
+             'takes f32 (M, 128), the others bf16 (M, K) with N = 128', who)
+    _require(not (proj and ln is not None), 'the projection has no LN', who)
+    expect = {'a': (a, (M, K), a.dtype), 'w_t': (w_t, (N, K), bf16)}
+    if bias is not None:
+        expect['bias'] = (bias, (N,), f32)
+    if ln is not None:
+        _require(bias is not None and resid is not None,
+                 'the LN epilogue takes bias and resid', who)
+        expect.update(resid=(resid, (M, N), f32), ln=(ln, (2, N), f32))
+        if rowmask is not None:
+            expect['rowmask'] = (rowmask, (M,), f32)
+    _check_tensors(expect, a, who)
+    lib = _library()
+    ptr = lambda t_: 0 if t_ is None else t_.data_ptr()
+    with torch.cuda.device(a.device):
+        out = torch.empty(M, N, dtype=f32 if ln is not None else bf16,
+                          device=a.device)
+        out_f32, out_bf16 = (out, None) if ln is not None else (None, out)
+        err = lib.gablock_gemm(
+            ptr(a), int(proj), ptr(w_t), M, K, N, ptr(bias), int(relu),
+            ptr(resid), ptr(rowmask), ptr(ln), ptr(out_f32), ptr(out_bf16),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _launch_error(lib, err, who)
+    gablock_gemm.launches += 1
+    return out
+
+
+gablock_gemm.launches = 0
 
 
 # ------------------------------------------------------------ K5, the chain
@@ -509,5 +678,9 @@ def reset_counts():
     counts."""
     gablock_layer.launches = 0
     gablock_layer_reference.calls = 0
+    gablock_attention.launches = 0
+    gablock_attention_reference.calls = 0
+    gablock_gemm.launches = 0
+    gablock_gemm_reference.calls = 0
     fused_encoder_chained.launches = 0
     fused_encoder_chained_reference.calls = 0

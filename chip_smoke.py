@@ -8,10 +8,17 @@ Phases, each fatal on failure:
      encoder kernel K5, the attention variants S1-S3; S4 lives in K1's
      source), one nvcc per source, all started together;
   3. K1 vs plain: the GABlock kernel against its plain PyTorch version
-     at the sampler's widths (F=128, Cz=64, H=12, L=128), bf16, atol/rtol
-     0.05 on valid rows, cases (Nc=1, reps=32), (Nc=2, reps=4, 8 padded
-     rows) and (Nc=1, reps=256); per-layer times of both at reps 32 and
-     256;
+     at the sampler's widths (F=128, Cz=64, H=12), bf16, atol/rtol 0.05
+     on valid rows, cases (Nc=1, reps=32), (Nc=2, reps=4, 8 padded rows)
+     and (Nc=1, reps=256) at L=128, then (Nc=2, reps=3, 5 padded rows) at
+     L=48, (Nc=1, reps=4) at L=256 and (Nc=2, reps=1, 3 padded rows), each
+     launched twice with bitwise-equal outputs; per-layer times of both at
+     reps 32 and 256; K1 against S4's abl baseline (mask 0, the PR-7 design
+     of the layer) at reps 256, reps 32 and L=256 (reps 64), each warmed,
+     the median of 4 order-alternated rounds; one K1 layer's launches under
+     torch.profiler beside each launch's floor; K1's attention launch alone
+     against its plain version and against scaled_dot_product_attention on
+     the same operands (reps 256, L=128);
   4. K2/K3 vs plain: the attention forward (out, alphas) and backward
      (dqa, dka, dvvp, dbias) against their plain versions at the training
      slice's shapes (N=16, L=128, H=12, bf16: each tensor within 1e-2
@@ -121,6 +128,15 @@ VARIANT_ITERS = 20
 FUSED_CASES = ((1, 256, 4, 0), (2, 4, 2, 8))
 FUSED_ITERS = 30
 FUSED_ROUNDS = 4
+# K1 vs plain: (Nc, reps, padded rows, L). The first three are the sampler's
+# shapes (reps 32 and 256 timed); then ragged query tiles (L=48) with
+# padded rows at reps 3 (rt 1), L=256 at reps 4, and reps 1.
+K1_CASES = ((1, 32, 0, L), (2, 4, 8, L), (1, 256, 0, L), (2, 3, 5, 48),
+            (1, 4, 0, 256), (2, 1, 3, L))
+# K1 against S4's abl baseline: (reps, L), median of K1_ROUNDS rounds.
+K1_TIMED = ((256, L), (32, L), (64, 256))
+K1_ROUNDS = 4
+K1_ITERS = 20
 # Kernel vs plain training step. First measured on an H100 (bf16, the
 # slice's step): losses within 5.7e-5 relative, gradient cosine 0.99975,
 # global norms within 9.6e-4; the bounds keep a 10-20x margin.
@@ -147,7 +163,7 @@ def _cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _layer_case(Nc, reps, n_pad, seed, device):
+def _layer_case(Nc, reps, n_pad, seed, device, Ln=L):
     """Seeded GABlock weights and inputs at the sampler's widths."""
     import torch
     from ab_opt_tpu_torch.geometry import quaternion_to_rotation_matrix
@@ -156,13 +172,13 @@ def _layer_case(Nc, reps, n_pad, seed, device):
     torch.manual_seed(seed)
     block = GABlock(128, 64).to(device)
     N = Nc * reps
-    x = torch.randn(N, L, 128)
-    R9 = quaternion_to_rotation_matrix(torch.randn(N, L, 4)).reshape(N, L, 9)
-    t = torch.randn(N, L, 3)
-    z = torch.randn(Nc, L, L, 64)
-    mask_c = torch.ones(Nc, L)
+    x = torch.randn(N, Ln, 128)
+    R9 = quaternion_to_rotation_matrix(torch.randn(N, Ln, 4)).reshape(N, Ln, 9)
+    t = torch.randn(N, Ln, 3)
+    z = torch.randn(Nc, Ln, Ln, 64)
+    mask_c = torch.ones(Nc, Ln)
     if n_pad:
-        mask_c[:, L - n_pad:] = 0.0
+        mask_c[:, Ln - n_pad:] = 0.0
     mask = mask_c.repeat_interleave(reps, 0)
     to = lambda a: a.to(device).contiguous()
     zb = to(z).to(torch.bfloat16)
@@ -229,26 +245,35 @@ def _k1_gate(got, ref, valid):
 
 
 def phase_kernel(device):
-    """Kernel vs plain version at the sampler's shapes, then their times.
+    """Kernel vs plain version at the sampler's shapes and K1_CASES, each
+    launched twice (the two outputs bitwise equal), then their times, K1
+    against the PR-7 design, its launches and its attention against SDPA.
     Returns (max_abs_err, {reps: (kernel_ms, plain_ms)},
     {reps: (bound_ms, bound_by)})."""
     import torch
-    from ab_opt_tpu_torch.ops.gablock import (gablock_layer,
+    from ab_opt_tpu_torch.ops.gablock import (attention_replicas,
+                                              gablock_layer,
                                               gablock_layer_reference)
     torch.set_grad_enabled(False)
     worst, times, bounds = 0.0, {}, {}
-    for Nc, reps, n_pad in ((1, 32, 0), (2, 4, 8), (1, 256, 0)):
-        args = _layer_case(Nc, reps, n_pad, seed=Nc + reps, device=device)
+    for Nc, reps, n_pad, Ln in K1_CASES:
+        args = _layer_case(Nc, reps, n_pad, seed=Nc + reps + Ln - L,
+                           device=device, Ln=Ln)
         got = gablock_layer(*args)
+        again = gablock_layer(*args)
         torch.cuda.synchronize()
         ref = gablock_layer_reference(*args)
         max_err, ok = _k1_gate(got, ref, args[5] > 0)
-        print(f'kernel vs plain (Nc={Nc}, reps={reps}, padded rows={n_pad}):'
-              f' max_abs_err={max_err:.6f} ok={ok}')
-        if not ok:
-            raise SystemExit('GABlock kernel disagrees with its plain version')
+        same = torch.equal(got, again)
+        print(f'kernel vs plain (Nc={Nc}, reps={reps}, rt='
+              f'{attention_replicas(reps)}, L={Ln}, padded rows={n_pad}): '
+              f'max_abs_err={max_err:.6f} ok={ok}, second launch bitwise '
+              f'equal={same}')
+        if not (ok and same):
+            raise SystemExit('GABlock kernel disagrees with its plain version'
+                             ' or with itself')
         worst = max(worst, max_err)
-        if Nc == 1:
+        if Nc == 1 and Ln == L and reps in (32, 256):
             k_ms = _cuda_ms(lambda: gablock_layer(*args), 20)
             p_ms = _cuda_ms(lambda: gablock_layer_reference(*args), 5)
             k_ms2 = _cuda_ms(lambda: gablock_layer(*args), 20)
@@ -257,7 +282,127 @@ def phase_kernel(device):
             print(f'per-layer ms at reps={reps} (N={reps}, L={L}): '
                   f'kernel {k_ms:.4f} / {k_ms2:.4f}, plain {p_ms:.4f}, '
                   f'bound {bounds[reps][0]:.4f} ({bounds[reps][1]})')
+    _k1_before_after(device)
+    _k1_profile(device)
+    _k1_attention_vs_sdpa(device)
     return worst, times, bounds
+
+
+def _k1_before_after(device):
+    """K1 against S4's abl baseline (mask 0: the PR-7 code of the layer) at
+    K1_TIMED: each warmed first, then K1_ROUNDS rounds of K1_ITERS chained
+    layers of each, the order alternated; the medians."""
+    import statistics
+    import torch
+    from ab_opt_tpu_torch.ops import gablock as gb
+    from ab_opt_tpu_torch.ops import gablock_variants as gv
+    from ab_opt_tpu_torch.utils.micro_fused import chain_ms
+    for reps, Ln in K1_TIMED:
+        args = _layer_case(1, reps, 0, seed=reps + Ln, device=device, Ln=Ln)
+        x, rest = args[0], args[1:]
+        layers = {'K1': lambda y: gb.gablock_layer(y, *rest),
+                  'PR-7 design (abl baseline)':
+                      lambda y: gv.gablock_layer_abl(y, *rest)}
+        for layer in layers.values():
+            layer(x)
+        ms = {name: [] for name in layers}
+        for r in range(K1_ROUNDS):
+            for name in (list(layers) if r % 2 == 0 else list(layers)[::-1]):
+                ms[name].append(chain_ms(layers[name], x, K1_ITERS))
+        med = {name: statistics.median(t) for name, t in ms.items()}
+        new, old = med['K1'], med['PR-7 design (abl baseline)']
+        print(f'K1 before/after at reps={reps}, L={Ln} (median of '
+              f'{K1_ROUNDS} alternated rounds of {K1_ITERS} chained layers): '
+              + ', '.join(f'{n} {med[n]:.4f} ms (rounds '
+                          f'{min(ms[n]):.4f}-{max(ms[n]):.4f})' for n in ms)
+              + f'; K1 saves {old - new:.4f} ms ({(old - new) / old:.1%})')
+        torch.cuda.synchronize()
+
+
+def _k1_launch_floors(args):
+    """{launch name fragment: (floor ms, 'bytes' or 'operations')} of each
+    of K1's launches on these inputs: its operations over the bf16 peak,
+    its inputs read once and outputs written once over the memory rate.
+    The GEMM entries cover both launches of their epilogue (LN: out_transform
+    + LN1 and MLP3 + LN2; ReLU: MLP1 and MLP2), as the profile sums them."""
+    x, R9, t, z, bias, mask, wb, reps = args
+    H = wb['dims'][0]
+    N, Ln, F = x.shape
+    M, pw, ko = N * Ln, wb['w_proj'].shape[1], wb['w_out'].shape[0]
+    HD = H * 64
+    alpha = N * H * Ln * Ln * 2
+    return {
+        'k1_proj_kernel': _bound(2 * M * F * pw, M * F * 4 + pw * F * 2
+                                 + M * pw * 2),
+        'assemble_kernel': _bound(0, M * pw * 2 + M * 12 * 4 + 3 * M * HD * 2),
+        'k1_attn_kernel': _bound(4 * N * H * Ln * Ln * 64, 3 * M * HD * 2
+                                 + _nbytes(bias) + M * HD * 2 + alpha),
+        'p2n_kernel': _bound(2 * N * H * Ln * Ln * 64,
+                             alpha + _nbytes(z) + M * H * 64 * 2),
+        'feat_kernel': _bound(0, M * HD * 2 + M * 12 * 4
+                              + M * (ko - H * 64) * 2),
+        'k1_gemm_kernel<1,': _bound(2 * M * ko * F + 2 * M * F * F,
+                                    M * ko * 2 + ko * F * 2 + 2 * M * F * 4
+                                    + M * F * 2 + M * F * 2 + F * F * 2
+                                    + 2 * M * F * 4),
+        'k1_gemm_kernel<0,': _bound(2 * 2 * M * F * F,
+                                    2 * (M * F * 2 + F * F * 2 + M * F * 2)),
+    }
+
+
+def _k1_profile(device):
+    """One K1 layer at reps 256 under torch.profiler: each launch's device
+    time beside its floor (the two LN GEMMs and the two ReLU GEMMs summed)."""
+    from ab_opt_tpu_torch.utils.micro_fused import profile_layer
+    args = _layer_case(1, 256, 0, seed=7, device=device)
+    rows = profile_layer(args)
+    total = sum(r[1] for r in rows)
+    floors = _k1_launch_floors(args)
+    print(f'K1 per launch at reps=256, L={L} (torch.profiler): {total:.1f} us '
+          'of device time')
+    for key, us, n in rows:
+        floor = next((f for frag, f in floors.items() if frag in key), None)
+        fl = (f', floor {floor[0] * 1e3:.1f} us ({floor[1]}, {us / 1e3 / floor[0]:.1f}x)'
+              if floor and floor[0] > 0 else '')
+        print(f'  {us:9.1f} us {us / total:6.1%} x{n}{fl}  {key[:80]}')
+
+
+def _k1_attention_vs_sdpa(device):
+    """K1's attention launch alone against scaled_dot_product_attention on
+    the same operands (the same o: scale 1.0, the bias as an additive mask)
+    at reps 256, L=128, H=12."""
+    import torch
+    from ab_opt_tpu_torch.ops import gablock as gb
+    from ab_opt_tpu_torch.utils import micro_attention as mh
+    H = 12
+    qa, ka, vv, bias, _ = mh.make_operands(256, 256, L, H, 64, device,
+                                           seed=11)
+    o, alpha = gb.gablock_attention(qa, ka, vv, bias, 256)
+    torch.cuda.synchronize()
+    ref_o, ref_a = gb.gablock_attention_reference(qa, ka, vv, bias, 256)
+    # alpha: K2's bf16 gate (both round the same f32 softmax once). o: an
+    # alpha one ulp apart moves o by up to 2^-8 of |vv|, so o's atol is
+    # ATTN_BF16_RTOL of the largest |vv| (the card tests' gate).
+    err_o = (o.float() - ref_o.float()).abs()
+    ok_o = bool(torch.isfinite(o).all()) and bool((
+        err_o <= ATTN_BF16_RTOL * (float(vv.float().abs().max())
+                                   + ref_o.float().abs())).all())
+    errs = [(float(err_o.max()), None, ok_o), _bf16_gate(alpha, ref_a)]
+    sdpa, layout = mh.sdpa_call(qa, ka, vv, bias, 256)
+    sdpa_err = float((layout(sdpa()).float() - ref_o.float()).abs().max())
+    ms = _cuda_ms(lambda: gb.gablock_attention(qa, ka, vv, bias, 256), 20)
+    lib_ms = _cuda_ms(sdpa, 20)
+    ms2 = _cuda_ms(lambda: gb.gablock_attention(qa, ka, vv, bias, 256), 20)
+    N = 256
+    bound = _bound(4 * N * H * L * L * 64,
+                   _nbytes(qa, ka, vv, bias, o, alpha))
+    print(f'K1 attention alone at N=256, reps=256, L={L}, H={H}: '
+          f'{ms:.4f} / {ms2:.4f} ms (o {errs[0][0]:.6f}, alpha '
+          f'{errs[1][0]:.6f} from plain), bound {bound[0]:.4f} '
+          f'({bound[1]}); scaled_dot_product_attention (o only) '
+          f'{lib_ms:.4f} ms (max |d o| {sdpa_err:.6f})')
+    if not (errs[0][2] and errs[1][2]):
+        raise SystemExit('K1 attention disagrees with its plain version')
 
 
 def _attention_case(N, Ln, reps, dtype, n_pad, seed, device, H=12):
@@ -966,9 +1111,11 @@ def phase_fused_variants(device):
         res['v3']['max_abs_err'] = max(res['v3']['max_abs_err'], gate(
             got, ref, valid, f'v3 vs plain (Nc={Nc}, reps={reps}, rt={rt}, '
                              f'padded rows={n_pad})'))
+        d_base = float((got - gv.gablock_layer_abl(*args)).abs().max())
         d_k1 = float((got - gb.gablock_layer(*args)).abs().max())
-        print(f'v3 vs K1: max |d|={d_k1} (the same arithmetic, the bias rows '
-              'from shared memory)')
+        print(f'v3 vs the abl baseline (mask 0): max |d|={d_base} (the same '
+              f'arithmetic, the bias rows from shared memory); v3 vs K1: '
+              f'max |d|={d_k1:.6f}')
         cases[(Nc, reps)] = args
         for flags in gv.ABLATIONS:
             name = 'floor' if flags == gv.FLOOR else flags[0]

@@ -1,6 +1,6 @@
-"""The GABlock kernel (K1), the IPA attention kernels (K2, K3, K4), the
-chained encoder kernel (K5), the attention variants (S1-S3) and the
-fused-GABlock variants (S4)
+"""The GABlock kernel (K1, its attention launch and its GEMM alone too), the
+IPA attention kernels (K2, K3, K4), the chained encoder kernel (K5), the
+attention variants (S1-S3) and the fused-GABlock variants (S4)
 against their plain versions, on an NVIDIA GPU (marker
 ``cuda``; skips without a card). Imports no JAX, so it also runs where only
 the port is installed:
@@ -19,9 +19,12 @@ from ab_opt_tpu_torch.utils.bench_fixture import encoder_case
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('L,Nc,reps', [(16, 1, 2), (48, 2, 3), (80, 1, 3),
-                                       (128, 2, 4)])
+                                       (128, 2, 4), (128, 2, 1), (256, 1, 4),
+                                       (144, 1, 3), (128, 1, 256)])
 def test_kernel_matches_plain_on_card(L, Nc, reps):
-    """L below, between and at multiples of the 64-row query tile."""
+    """L below, between and at multiples of the attention's query tile (128
+    rows up to L=128, 64 past it), reps 1 to 256 (attention blocks of 1, 2
+    and 4 replicas), 5 padded rows; two launches are bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
     dev = torch.device('cuda')
@@ -42,11 +45,87 @@ def test_kernel_matches_plain_on_card(L, Nc, reps):
         wb = gb.build_gablock_weights(block, torch.bfloat16)
         args = (x, R9, t, z, bias, mask_c.repeat_interleave(reps, 0), wb, reps)
         got = gb.gablock_layer(*args)
+        again = gb.gablock_layer(*args)
         torch.cuda.synchronize()
         ref = gb.gablock_layer_reference(*args)
     valid = args[5] > 0
     assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
     torch.testing.assert_close(got[valid], ref[valid], atol=0.05, rtol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L', [16, 48, 128, 256])
+@pytest.mark.parametrize('reps', [1, 3, 4, 256])
+def test_k1_attention_matches_plain_on_card(L, reps):
+    """K1's attention launch alone against its plain version, bf16, H=12,
+    5 padded key columns, blocks of 1 and 4 replicas: alpha within rtol
+    1e-2 plus 1e-3 of its largest value (both round the same f32 softmax
+    once); o within rtol 1e-2 plus 1e-2 of the largest |vv| (an alpha one
+    ulp apart moves o by up to 2^-8 of |vv|). One launch, no plain
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    Nc = 2 if reps < 4 else 1
+    qa, ka, vv, bias, _, _ = _attention_case(L, Nc, reps, torch.bfloat16,
+                                             torch.device('cuda'),
+                                             seed=L + reps)
+    gb.reset_counts()
+    with torch.no_grad():
+        o, alpha = gb.gablock_attention(qa, ka, vv, bias, reps)
+        torch.cuda.synchronize()
+        assert (gb.gablock_attention.launches,
+                gb.gablock_attention_reference.calls) == (1, 0)
+        ref_o, ref_a = gb.gablock_attention_reference(qa, ka, vv, bias, reps)
+    assert o.shape == ref_o.shape and alpha.shape == ref_a.shape
+    assert torch.isfinite(o).all() and torch.isfinite(alpha).all()
+    torch.testing.assert_close(alpha.float(), ref_a.float(), rtol=1e-2,
+                               atol=1e-3 * float(ref_a.float().abs().max()))
+    torch.testing.assert_close(o.float(), ref_o.float(), rtol=1e-2,
+                               atol=1e-2 * float(vv.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('M', [64, 300, 4096])
+@pytest.mark.parametrize('form', ['proj', 'relu', 'ln_out', 'ln_mlp'])
+def test_k1_gemm_matches_plain_on_card(M, form):
+    """K1's GEMM alone against its plain version in each of its forms: the
+    projection (f32 x, 2048 columns), MLP1/2 (bias, ReLU), out_transform
+    (K = 1824) and MLP3 (K = 128) with the LayerNorm epilogue, row mask
+    zeros on a third of the rows; M at, past and far past the 64- and
+    128-row tiles. bf16 outputs within one bf16 ulp of the plain version
+    (rtol 1e-2, atol 1e-2 of the largest value); the LN outputs within
+    1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(M)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    bf16 = torch.bfloat16
+    K = {'proj': 128, 'relu': 128, 'ln_out': 1824, 'ln_mlp': 128}[form]
+    N = 2048 if form == 'proj' else 128
+    a = r(M, K) if form == 'proj' else r(M, K).to(bf16)
+    w_t = (r(N, K) / K ** 0.5).to(bf16)
+    kw = {}
+    if form == 'relu':
+        kw = dict(bias=r(N), relu=True)
+    elif form != 'proj':
+        kw = dict(bias=r(N), resid=r(M, N), rowmask=(r(M) > -0.4).float(),
+                  ln=r(2, N))
+    gb.reset_counts()
+    with torch.no_grad():
+        got = gb.gablock_gemm(a, w_t, **kw)
+        torch.cuda.synchronize()
+        assert (gb.gablock_gemm.launches, gb.gablock_gemm_reference.calls) == (
+            1, 0)
+        ref = gb.gablock_gemm_reference(a, w_t, **kw)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    if 'ln' in kw:
+        torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-3)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2,
+                                   atol=1e-2 * float(ref.float().abs().max()))
 
 
 def _attention_case(L, Nc, reps, dtype, dev, H=12, n_pad=5, seed=0):
@@ -293,8 +372,9 @@ def _gablock_case(L, Nc, reps):
 def test_gablock_v3_matches_plain_on_card(L, Nc, reps, rt):
     """S4's v3 (attention over rt replicas) against K1's plain version,
     bf16, 5 padded rows a complex, atol/rtol 0.05 on valid rows; one v3
-    launch, no K1 launch and no plain call. It also equals K1 exactly: the
-    same arithmetic, with the bias rows read from shared memory."""
+    launch, no K1 launch and no plain call. It also equals the abl
+    baseline (mask 0, the code v3 varies) exactly: the same arithmetic,
+    with the bias rows read from shared memory."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
     args = _gablock_case(L, Nc, reps)
@@ -307,7 +387,7 @@ def test_gablock_v3_matches_plain_on_card(L, Nc, reps, rt):
             {'v3': 1, 'abl': 0}, 0)
         assert gb.gablock_layer_reference.calls == 0
         ref = gb.gablock_layer_reference(*args)
-        assert torch.equal(got, gb.gablock_layer(*args))
+        assert torch.equal(got, gv.gablock_layer_abl(*args))
     valid = args[5] > 0
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got[valid], ref[valid], atol=0.05, rtol=0.05)

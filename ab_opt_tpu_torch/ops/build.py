@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels: each ``csrc/*.cu`` is compiled by ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface under
-``_build/`` (keyed by the source's hash, so an unchanged source is not
-rebuilt) and loaded with ``ctypes``. Builds happen at first use, never at
-import."""
+``_build/`` (keyed by the hash of the source and of every ``csrc/*.cuh``
+header, so an unchanged source is not rebuilt and a changed header rebuilds
+every source) and loaded with ``ctypes``. Builds happen at first use, never
+at import."""
 from __future__ import annotations
 
 import hashlib
@@ -33,8 +34,14 @@ def nvcc_path() -> str:
 
 
 def library_path(src: Path, build_dir: Path, flags=()) -> Path:
-    digest = hashlib.sha256(Path(src).read_bytes() + ' '.join(
-        NVCC_FLAGS + tuple(flags)).encode()).hexdigest()
+    """Where ``src`` built with ``flags`` lives: named by a digest of the
+    source, the headers beside it (all of them: a source that includes none
+    is rebuilt for nothing, never loaded stale) and the nvcc command."""
+    h = hashlib.sha256(Path(src).read_bytes())
+    for header in sorted(Path(src).parent.glob('*.cuh')):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS + tuple(flags)).encode())
+    digest = h.hexdigest()
     return Path(build_dir) / f'{Path(src).stem}-{digest[:16]}.so'
 
 

@@ -26,8 +26,8 @@ from a :class:`ab_opt_tpu_torch.nn.ipa.GABlock`:
 * ``ln1``/``ln2`` (2, F) f32 (gamma, beta); ``w_m1..3`` (F, F), ``b_m``
   (3, F) f32: the transition MLP;
 * ``w_proj_t``, ``w_out_t``, ``w_m1_t``..``w_m3_t``: the same five matrices
-  transposed, (N, K) with K contiguous, as K1's GEMM reads them (K5 and S4
-  read the (K, N) forms);
+  transposed, (N, K) with K contiguous, as K1's and K5's GEMM tile reads
+  them (S4 reads the (K, N) forms);
 * ``dims``: (H, QK, V, P, PV).
 
 Per-complex inputs under trajectory fan-out (row n belongs to complex
@@ -562,29 +562,39 @@ gablock_gemm.launches = 0
 
 
 CHAIN_PROFILE_FLAGS = ('-DGABLOCK_CHAIN_PROFILE',)
+# K5's work items (csrc/gablock_chain.cu): their kinds in phase order, the
+# rows of a row block (a proj or tail item's, and the most an assemble or
+# feat item takes), the query rows of an attention item (K5's blocks have 8
+# warps) and the alpha rows of a p2n item.
+CHAIN_KINDS = ('proj', 'assemble', 'attention', 'feat', 'p2n', 'tail')
+CHAIN_ROWS = 128
+CHAIN_QT = 128
+CHAIN_P2N_M = 128
 
 
 @functools.lru_cache(maxsize=None)
 def _chain_library(flags=()):
     """K5's library; ``CHAIN_PROFILE_FLAGS`` gives the profiling build
     (:mod:`ab_opt_tpu_torch.utils.profile_chain`), which also exports
-    ``gablock_chain_phase_cycles``."""
+    ``gablock_chain_profile_ns``."""
     lib = ctypes.CDLL(build.build_sources(
         [_CHAIN_SRC], build.BUILD_DIR, flags)[str(_CHAIN_SRC)]['path'])
-    P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-    lib.gablock_chain_layout.argtypes = [I, I, ctypes.POINTER(I),
-                                         ctypes.POINTER(I), ctypes.POINTER(S)]
-    lib.gablock_chain_layout.restype = I
-    lib.gablock_chain_workspace.argtypes = [I, I, I, ctypes.POINTER(S)]
-    lib.gablock_chain_workspace.restype = I
-    lib.gablock_chain_forward.argtypes = ([P] * 7 + [I] + [P] * 2 + [I]
-                                          + [P] * 9 + [S] + [I] * 5 + [P])
+    P, I, S, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t, ctypes.c_uint
+    lib.gablock_chain_workspace_bytes.argtypes = [I] * 5
+    lib.gablock_chain_workspace_bytes.restype = S
+    lib.gablock_chain_launch_shape.argtypes = [I, I, ctypes.POINTER(I),
+                                               ctypes.POINTER(I),
+                                               ctypes.POINTER(S)]
+    lib.gablock_chain_launch_shape.restype = I
+    lib.gablock_chain_forward.argtypes = (
+        [P] * 7 + [I] + [P] * 2 + [I] + [P] * 9 + [P, P, I, P, P, U]
+        + [I] * 7 + [P])
     lib.gablock_chain_forward.restype = I
     lib.gablock_chain_error_string.argtypes = [I]
     lib.gablock_chain_error_string.restype = ctypes.c_char_p
     if flags == CHAIN_PROFILE_FLAGS:
-        lib.gablock_chain_phase_cycles.argtypes = [P, I]
-        lib.gablock_chain_phase_cycles.restype = I
+        lib.gablock_chain_profile_ns.argtypes = [P, I]
+        lib.gablock_chain_profile_ns.restype = I
     return lib
 
 
@@ -594,19 +604,175 @@ def _chain_error(lib, err: int, what: str):
                        f'({msg})')
 
 
-def chain_layout(L: int, H: int, lib=None) -> dict:
-    """Where K5 keeps x and the feature rows at this L and H (shared memory,
-    or the output rows and the per-block scratch slab) and its shared
-    memory per block; raises ValueError where the tile does not fit."""
+def chain_launch_shape(L: int, H: int, lib=None) -> dict:
+    """K5's persistent grid (blocks an SM x SMs), threads and shared memory
+    a block at this L and H on the current card."""
     lib = lib or _chain_library()
-    xs, fs, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_size_t()
-    err = lib.gablock_chain_layout(L, H, ctypes.byref(xs), ctypes.byref(fs),
-                                   ctypes.byref(smem))
-    _require(err == 0, f'L={L}, H={H}: '
-             f'{lib.gablock_chain_error_string(err).decode()}',
-             'fused_encoder_chained')
-    return {'x_in_smem': bool(xs.value), 'feat_in_smem': bool(fs.value),
+    grid, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_size_t()
+    err = lib.gablock_chain_launch_shape(L, H, ctypes.byref(grid),
+                                         ctypes.byref(threads),
+                                         ctypes.byref(smem))
+    if err != 0:
+        _chain_error(lib, err, 'planning the launch')
+    return {'grid': grid.value, 'threads': threads.value,
             'smem_bytes': smem.value}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def chain_plan(N: int, L: int, H: int, reps: int, num_layers: int,
+               sms: int, pw: int | None = None) -> dict:
+    """K5's work list for one pass: every layer's items in ticket order,
+    (layer, phase, replica group, tile), with the counters each waits on.
+
+    Returns a dict of
+    * ``items``: int32 (n, 8) rows (kind, layer, p0, p1, p2, signal counter,
+      waits lo, hi), kinds indexing :data:`CHAIN_KINDS`: proj (row block,
+      first column tile, end), assemble (first row, end row, 0), attention
+      (query tile, head, replica group), feat (first row, end row, 0),
+      p2n (first query row, alpha-row block, complex), tail (row block,
+      0, 0);
+    * ``waits``: int32 counter ids, item ``k``'s are ``waits[lo:hi]``;
+    * ``totals``: int32, per counter the items that signal it: a wait is
+      met once all of them have run;
+    * ``keys``: each counter's (name, layer, ...) key; ``rt`` (replicas an
+      attention item serves), ``p2n_rows`` (query rows a p2n item),
+      ``asm_rows`` and ``feat_rows`` (rows an assemble or feat item) and
+      ``splits`` (column splits of the projection).
+
+    Row blocks are :data:`CHAIN_ROWS` rows of the (N L) rows; an assemble
+    or feat item takes 16 to 128 rows of one, fewer where the rows are few,
+    so that the items cover the SMs.
+
+    ``sms`` sets the projection's column split as K1 sets it; ``pw`` (the
+    projection width, default ``H * 168`` rounded up to 128) its tiles.
+    """
+    pw = pw or _cdiv(H * 168, 128) * 128
+    M, Nc, rt = N * L, N // reps, attention_replicas(reps)
+    MB, Q, RH = _cdiv(M, CHAIN_ROWS), _cdiv(L, CHAIN_QT), reps * H
+    PMB, tiles = _cdiv(RH, CHAIN_P2N_M), pw // 128
+    splits = max(1, min(tiles, _cdiv(sms, MB)))
+    per = _cdiv(tiles, splits)
+    # Fewer, larger items where the grid stays covered: each item costs a
+    # claim, its waits and a release besides its work.
+    p2n_rows = max(1, min(8, Nc * PMB * L // sms))
+    asm_rows = next((r for r in (128, 64, 32) if M // r >= sms), 16)
+    feat_rows = asm_rows
+    keys, index = [], {}
+
+    def counter(*key):
+        if key not in index:
+            index[key] = len(keys)
+            keys.append(key)
+        return index[key]
+
+    def block_rows(mb):
+        return mb * CHAIN_ROWS, min(M, (mb + 1) * CHAIN_ROWS)
+
+    def segments(r0, r1):
+        """(trajectory, first row, end row) of each trajectory in the rows
+        [r0, r1)."""
+        return [(n, max(r0, n * L) - n * L, min(r1, (n + 1) * L) - n * L)
+                for n in range(r0 // L, (r1 - 1) // L + 1)]
+
+    def group_blocks(g):
+        return range(g * rt * L // CHAIN_ROWS,
+                     ((g + 1) * rt * L - 1) // CHAIN_ROWS + 1)
+
+    def query_tiles(i0, i1):
+        return range(i0 // CHAIN_QT, (i1 - 1) // CHAIN_QT + 1)
+
+    def alpha_blocks(rp):
+        """The p2n items' alpha-row blocks that hold replica rp's heads."""
+        return range(rp * H // CHAIN_P2N_M,
+                     ((rp + 1) * H - 1) // CHAIN_P2N_M + 1)
+
+    items, waits = [], []
+
+    def add(kind, layer, p, signal, deps):
+        deps = list(dict.fromkeys(deps))
+        items.append((CHAIN_KINDS.index(kind), layer, *p, signal, len(waits),
+                      len(waits) + len(deps)))
+        waits.extend(deps)
+
+    for l in range(num_layers):
+        for mb in range(MB):
+            for t0 in range(0, tiles, per):
+                add('proj', l, (mb, t0, min(t0 + per, tiles)),
+                    counter('proj', l, mb),
+                    [counter('tail', l - 1, mb)] if l else [])
+        for mb in range(MB):
+            b0, b1 = block_rows(mb)
+            for r0 in range(b0, b1, asm_rows):
+                r1 = min(b1, r0 + asm_rows)
+                # The K, V rows it overwrites were read by the last layer's
+                # attention, which the last tail of these rows followed
+                # (through p2n of every query row).
+                add('assemble', l, (r0, r1, 0), counter('assemble', l, mb),
+                    [counter('proj', l, mb)])
+        for g in range(N // rt):
+            for q in range(Q):
+                for h in range(H):
+                    add('attention', l, (q, h, g),
+                        counter('attention', l, g, q),
+                        [counter('assemble', l, mb) for mb in group_blocks(g)])
+        for mb in range(MB):
+            b0, b1 = block_rows(mb)
+            for r0 in range(b0, b1, feat_rows):
+                r1 = min(b1, r0 + feat_rows)
+                deps = [counter('attention', l, n // rt, q)
+                        for n, i0, i1 in segments(r0, r1)
+                        for q in query_tiles(i0, i1)]
+                add('feat', l, (r0, r1, 0), counter('feat', l, mb), deps)
+        for c in range(Nc):
+            for pm in range(PMB):
+                m0, m1 = pm * CHAIN_P2N_M, min(RH, (pm + 1) * CHAIN_P2N_M)
+                groups = sorted({(c * reps + rp) // rt
+                                 for rp in range(m0 // H, (m1 - 1) // H + 1)})
+                for i0 in range(0, L, p2n_rows):
+                    qs = query_tiles(i0, min(L, i0 + p2n_rows))
+                    add('p2n', l, (i0, pm, c), counter('p2n', l, c, pm),
+                        [counter('attention', l, g, q)
+                         for g in groups for q in qs])
+        for mb in range(MB):
+            deps = [counter('feat', l, mb)]
+            for n, _, _ in segments(*block_rows(mb)):
+                c, rp = divmod(n, reps)
+                deps += [counter('p2n', l, c, pm) for pm in alpha_blocks(rp)]
+            add('tail', l, (mb, 0, 0), counter('tail', l, mb), deps)
+
+    items = torch.tensor(items, dtype=torch.int32).reshape(-1, 8)
+    totals = torch.bincount(items[:, 5].long(), minlength=len(keys))
+    return {'items': items, 'waits': torch.tensor(waits, dtype=torch.int32),
+            'totals': totals.to(torch.int32), 'keys': keys, 'rt': rt,
+            'p2n_rows': p2n_rows, 'asm_rows': asm_rows, 'feat_rows': feat_rows,
+            'splits': _cdiv(tiles, per)}
+
+
+# K5's state per (library, device, shape): the plan's tables on the card,
+# the workspace, the counters and the launch epoch. Built at the first pass
+# of a shape, kept for every later one; the passes of one shape share them,
+# so they run one after another (one stream), as a sampler's steps do.
+_CHAIN_STATE: dict = {}
+
+
+def _chain_state(lib, device, N, L, H, reps, num_layers, pw, ko) -> dict:
+    key = (id(lib), str(device), N, L, H, reps, num_layers, pw, ko)
+    state = _CHAIN_STATE.get(key)
+    if state is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = chain_plan(N, L, H, reps, num_layers, sms, pw)
+        state = {k: plan[k].to(device) for k in ('items', 'waits', 'totals')}
+        state.update(
+            rt=plan['rt'], p2n_rows=plan['p2n_rows'], epoch=0,
+            counters=torch.zeros(1 + len(plan['keys']), dtype=torch.int32,
+                                 device=device),
+            ws=torch.empty(lib.gablock_chain_workspace_bytes(N, L, H, pw, ko),
+                           dtype=torch.uint8, device=device))
+        _CHAIN_STATE[key] = state
+    return state
 
 
 def fused_encoder_chained(stacked, num_layers: int, R9, t, x, z, biases,
@@ -637,26 +803,25 @@ def _launch_chain(lib, stacked, num_layers, R9, t, x, z, biases, mask, reps):
     """One launch of K5 from ``lib`` on checked CUDA inputs."""
     N, L, F = x.shape
     H = stacked['dims'][0]
-    chain_layout(L, H, lib)
     pw, ko = stacked['w_proj'].shape[-1], stacked['w_out'].shape[-2]
     with torch.cuda.device(x.device):
-        nbytes = ctypes.c_size_t()
-        err = lib.gablock_chain_workspace(N, L, H, ctypes.byref(nbytes))
-        if err != 0:
-            _chain_error(lib, err, 'planning the launch')
-        ws = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
+        st = _chain_state(lib, x.device, N, L, H, reps, num_layers, pw, ko)
         out = torch.empty_like(x)
         ptr = lambda a: a.data_ptr()
+        w = lambda n: ptr(stacked[n + '_t'])
         err = lib.gablock_chain_forward(
             ptr(x), ptr(R9), ptr(t), ptr(z), ptr(biases), ptr(mask),
-            ptr(stacked['w_proj']), pw, ptr(stacked['coef']),
-            ptr(stacked['w_out']), ko, ptr(stacked['b_out']),
-            ptr(stacked['ln1']), ptr(stacked['w_m1']), ptr(stacked['w_m2']),
-            ptr(stacked['w_m3']), ptr(stacked['b_m']), ptr(stacked['ln2']),
-            ptr(out), ptr(ws), nbytes.value, N, L, H, reps, num_layers,
+            w('w_proj'), pw, ptr(stacked['coef']), w('w_out'), ko,
+            ptr(stacked['b_out']), ptr(stacked['ln1']), w('w_m1'),
+            w('w_m2'), w('w_m3'), ptr(stacked['b_m']), ptr(stacked['ln2']),
+            ptr(out), ptr(st['ws']), ptr(st['counters']), ptr(st['items']),
+            st['items'].shape[0], ptr(st['waits']), ptr(st['totals']),
+            (st['epoch'] + 1) % 2 ** 32, N, L, H, reps, st['rt'],
+            num_layers, st['p2n_rows'],
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         _chain_error(lib, err, 'kernel launch')
+    st['epoch'] += 1
     return out
 
 
@@ -671,6 +836,15 @@ def _check_chain_inputs(stacked, num_layers, R9, t, x, z, biases, mask,
     expect['biases'] = (biases, (N // reps, num_layers, H, L, L),
                         torch.bfloat16)
     _check_tensors(expect, x, who)
+    for name, a in (('R9', R9), ('t', t)):   # staged by 16-byte cp.async
+        _require(a.data_ptr() % 16 == 0,
+                 f'{name} must start on a 16-byte boundary', who)
+    missing = [n + '_t' for n in TRANSPOSED if n + '_t' not in stacked]
+    _require(not missing, f'the stack lacks {missing} (stack bundles from '
+             'build_gablock_weights)', who)
+    _check_tensors({n + '_t': (stacked[n + '_t'],
+                               (num_layers,) + tuple(stacked[n].shape[:0:-1]),
+                               torch.bfloat16) for n in TRANSPOSED}, x, who)
 
 
 def reset_counts():

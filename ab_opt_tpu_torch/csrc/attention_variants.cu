@@ -3,9 +3,8 @@
 //
 // Replaces the TPU kernels of scripts/micro_kernel_variants.py:
 //   S1  v1_call -> _v1_kernel: K2's function (ab_opt_tpu/ops/ipa_pallas.py
-//       _attention_fwd_call), phase-separated: every head's logits, one
-//       softmax over (H, 16, L), every head's alpha . vvp; with store_alphas
-//       (v1) it exports the alphas, without (v3) only out;
+//       _attention_fwd_call); with store_alphas (v1) it exports the alphas,
+//       without (v3) only out;
 //   S2  v2_call -> _v2_kernel: K2's function with the heads as the batch
 //       dimension of one product; exports the alphas;
 //   S3  v4_call -> _v4_kernel: v3 plus p2n[n, i, h, :] = sum_j alpha[h, i, j]
@@ -14,9 +13,9 @@
 // a 64-wide slot, qa pre-scaled; bias is (N / reps, H, L, L) (trajectory n
 // reads its complex's block n / reps); alphas (N, H, L, L); z (N / reps, L,
 // L, Cz), p2n (N, L, H, Cz). All bf16. Every product accumulates in f32 on
-// the tensor cores (wmma 16x16x16); the softmax is exact (max-subtract, f32)
-// and alpha is rounded to bf16 once, and that value feeds every product and
-// the alphas output.
+// the tensor cores (S1: mma.sync m16n8k16; S2, S3: wmma 16x16x16); the
+// softmax is exact (max-subtract, f32) and alpha is rounded to bf16 once,
+// and that value feeds every product and the alphas output.
 //
 // What bounds them on this card. At the script's shape (N = 256 replicas of
 // one complex, L = 128, H = 12, Cz = 64) each variant does 12.9 GFLOP (v4:
@@ -24,24 +23,36 @@
 // MB (v1, v2) and p2n at 50.3 MB (v4): ~302 MB for v1 and v2, ~202 MB for
 // v3, ~254 MB for v4. At ~295 FLOP a byte before the bf16 tensor cores
 // limit, all are bounded by device-memory bytes (0.060-0.090 ms at 3.35
-// TB/s). What the variants price is where the intermediate alpha lives and
-// how the heads share a block: that is the whole design difference below.
+// TB/s). S2 and S3 price where the intermediate alpha lives and how the
+// heads share a block; S1 is K1's attention launch with alpha in K2's
+// layout or nowhere, held against the library's attention.
 //
-// Design. A block owns 16 query rows of one trajectory (grid (L / 16, N));
-// L is a multiple of 16, so no query row is padded.
-//   phased_kernel<STORE_ALPHAS, P2N> (S1 as v1 and v3, S3 as v4), 8 warps:
+// Design.
+//   S1 (v1, v3) runs K1's replica-group attention tile (csrc/k1_tiles.cuh
+//     k1_attn_tile, the tile of K1's attention launch): a block per (query
+//     tile, head, rt replicas of one complex), the tile's bias rows staged
+//     once for the group, a cp.async ring of K / V / Q stages, the logits,
+//     the exact softmax and alpha . V in mma.sync registers, o out through
+//     16-byte stores. v1 writes alpha in K2's (N, H, L, L) layout from the
+//     same registers; v3 compiles the alpha stores away. L a multiple of 16
+//     up to 256, as K1 takes it. Up to L = 128 the tile runs in AttnLean's
+//     plan (one K / V / Q stage, two blocks an SM; K1's launch keeps
+//     AttnSmall's three stages, one block an SM), past it in AttnLarge's.
+//   S1's earlier design (phased_kernel below with an alpha store: 16 query
+//   rows of one trajectory a block, every head's f32 logits in shared
+//   memory, capped at L = 128) is gone; its times stay in PERF.md.
+//   phased_kernel (S3, v4), 8 warps, a block owns 16 query rows of one
+//   trajectory (grid (L / 16, N)):
 //     phase 1  every head's 16 x L logits tile, f32, into shared memory
 //              (K of two heads staged at a time; warp w takes key tiles w,
 //              w + 8, ...);
 //     phase 2  one softmax pass over all H * 16 rows by the whole block (a
 //              warp a row), bias block n / reps added; alpha rounded to bf16
-//              into A at row r H + h (K4's layout: one 16 x 16 tile holds
-//              every head of query r, and head h's 16 x L alpha is rows
-//              h + H r); with STORE_ALPHAS also to the alphas output;
+//              into A at row r H + h (one 16 x 16 tile holds every head of
+//              query r, and head h's 16 x L alpha is rows h + H r);
 //     phase 3  every head's alpha . V (V of two heads staged at a time, one
 //              16 x 16 output tile a warp);
-//     phase 4  with P2N: p2n from A and z, two query rows at a time (K4's
-//              fwd_p2n_mma_kernel phase).
+//     phase 4  p2n from A and z, two query rows at a time.
 //     Shared memory holds the f32 logits of every head at once (98 KB at
 //     L = 128, H = 12), beside the block's query rows, two heads' K or V
 //     and the bf16 alphas: 219,520 bytes at L = 128, H = 12, so L = 128 is
@@ -55,23 +66,16 @@
 //     ka and vvp stay L2-resident across its 8 row tiles. Shared memory is
 //     per warp: the head's f32 logits and its bf16 alpha (13 KB at L = 128);
 //     cap L = 192 at 12 heads.
-// This is a first, simple version: no cp.async, TMA, wgmma or clusters.
+// S2 and S3 are first, simple versions: no cp.async, TMA, wgmma or
+// clusters.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
 #include <stddef.h>
-#include <math.h>
 
-typedef __nv_bfloat16 bf16;
-using namespace nvcuda;
+#include "k1_tiles.cuh"
 
 namespace {
 
-constexpr int SLOT = 64;          // per-head width of qa / ka / vvp
 constexpr int TI = 16;            // query rows a block (one wmma row tile)
-constexpr int KLD = SLOT + 8;     // smem pitch of staged 64-wide bf16 rows
 constexpr int NT = 256;           // threads of a phased block
 constexpr int NW = NT / 32;
 constexpr int HB_MAX_WARPS = 16;  // head-batched: warps a block at most
@@ -113,17 +117,6 @@ int hb_warps(int H) { return H < HB_MAX_WARPS ? H : HB_MAX_WARPS; }
 
 size_t head_batched_smem(int L, int H) { return hb_warps(H) * hb_warp_bytes(L); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // Exact softmax of one row by one warp: srow (f32 logits, L) plus the bias
 // row; alpha rounded to bf16 once into arow and, if given, grow (global).
 __device__ __forceinline__ void softmax_row(float* srow, const bf16* __restrict__ brow,
@@ -161,17 +154,31 @@ __device__ __forceinline__ void stage_slot(bf16* dst, const bf16* __restrict__ s
   }
 }
 
-// ------------------------------------------------------------- S1 and S3
+// -------------------------------------------------------------------- S1
+// Block = (query tile, head h, replicas blockIdx.z * rt .. + rt - 1), as
+// K1's attention launch; alpha in K2's layout (v1) or none (v3).
+template <class Plan, AlphaOut AO>
+__global__ void __launch_bounds__(Plan::QW * 32, 1)
+tile_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
+            const bf16* __restrict__ vv, const bf16* __restrict__ bias,
+            bf16* __restrict__ out, bf16* __restrict__ alphas, int L, int H,
+            int reps, int rt) {
+  extern __shared__ __align__(128) unsigned char smraw[];
+  const int h = blockIdx.y, n0 = blockIdx.z * rt;
+  k1_attn_tile<Plan, AO>(blockIdx.x * Plan::QT, h, n0, rt, qa, ka, vv,
+                         bias + ((size_t)(n0 / reps) * H + h) * L * L, out, alphas, L, H,
+                         reps, smraw);
+}
+
+// -------------------------------------------------------------------- S3
 // Shared memory: Qs (16 x q_ld) the block's query rows, every head; KV
 // (2 x L x KLD) two heads' K or V, or two queries' z rows; S (f32, see
 // phased_s_floats); A (phased_a_rows x a_ld bf16).
-template <bool STORE_ALPHAS, bool P2N>
 __global__ void __launch_bounds__(NT)
 phased_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
               const bf16* __restrict__ vv, const bf16* __restrict__ bias,
               const bf16* __restrict__ z, bf16* __restrict__ out,
-              bf16* __restrict__ alphas, bf16* __restrict__ p2n, int L, int H,
-              int Cz, int reps) {
+              bf16* __restrict__ p2n, int L, int H, int Cz, int reps) {
   extern __shared__ __align__(128) unsigned char smraw[];
   const int QLD = q_ld(H), SLD = s_ld(L), ALD = a_ld(L), HD = H * SLOT;
   bf16* Qs = reinterpret_cast<bf16*>(smraw);
@@ -215,9 +222,8 @@ phased_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
   const bf16* bbase = bias + (size_t)c * H * L * L;
   for (int row = warp; row < H * TI; row += NW) {
     const int h = row / TI, r = row - h * TI, i = i0 + r;
-    bf16* grow = STORE_ALPHAS ? alphas + (((size_t)n * H + h) * L + i) * L : nullptr;
     softmax_row(S + (size_t)row * SLD, bbase + ((size_t)h * L + i) * L,
-                A + ((size_t)r * H + h) * ALD, grow, L, lane);
+                A + ((size_t)r * H + h) * ALD, nullptr, L, lane);
   }
 
   // Phase 3: every head's alpha . V; warp w's output tile goes through its
@@ -249,7 +255,6 @@ phased_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
       __syncwarp();
     }
   }
-  if (!P2N) return;
 
   // Phase 4: p2n, two query rows at a time: warps 0-3 the first, 4-7 the
   // second, one Cz / 16-column tile each; the 16 x 16 A tile at row r H
@@ -361,20 +366,25 @@ int set_smem(K kernel, size_t bytes) {
   return (int)cudaGetLastError();
 }
 
-template <bool STORE_ALPHAS, bool P2N>
-int launch_phased(const void* qa, const void* ka, const void* vv,
-                  const void* bias, const void* z, void* out, void* alphas,
-                  void* p2n, int N, int L, int H, int Cz, int reps,
-                  cudaStream_t stream) {
-  const size_t smem = phased_smem(L, H);
-  int err = set_smem(phased_kernel<STORE_ALPHAS, P2N>, smem);
+template <class Plan, AlphaOut AO>
+int launch_tile(const void* qa, const void* ka, const void* vv, const void* bias, void* out,
+                void* alphas, int N, int L, int H, int reps, int rt, cudaStream_t stream) {
+  int err = set_smem(tile_kernel<Plan, AO>, Plan::smem(L));
   if (err) return err;
-  phased_kernel<STORE_ALPHAS, P2N><<<dim3(L / TI, N), NT, smem, stream>>>(
+  tile_kernel<Plan, AO><<<dim3((L + Plan::QT - 1) / Plan::QT, H, N / rt), Plan::QW * 32,
+                          Plan::smem(L), stream>>>(
       static_cast<const bf16*>(qa), static_cast<const bf16*>(ka),
-      static_cast<const bf16*>(vv), static_cast<const bf16*>(bias),
-      static_cast<const bf16*>(z), static_cast<bf16*>(out),
-      static_cast<bf16*>(alphas), static_cast<bf16*>(p2n), L, H, Cz, reps);
+      static_cast<const bf16*>(vv), static_cast<const bf16*>(bias), static_cast<bf16*>(out),
+      static_cast<bf16*>(alphas), L, H, reps, rt);
   return (int)cudaGetLastError();
+}
+
+template <AlphaOut AO>
+int launch_s1(const void* qa, const void* ka, const void* vv, const void* bias, void* out,
+              void* alphas, int N, int L, int H, int reps, int rt, cudaStream_t stream) {
+  if (L <= 128)
+    return launch_tile<AttnLean, AO>(qa, ka, vv, bias, out, alphas, N, L, H, reps, rt, stream);
+  return launch_tile<AttnLarge, AO>(qa, ka, vv, bias, out, alphas, N, L, H, reps, rt, stream);
 }
 
 bool shapes_ok(int N, int L, int H, int reps) {
@@ -385,35 +395,49 @@ bool shapes_ok(int N, int L, int H, int reps) {
 }  // namespace
 
 // Shared memory a block of each kernel takes at (L, H), in bytes; the
-// wrapper's cap is the largest L that fits in 232,448.
+// wrapper's cap for S2 and S3 is the largest L that fits in 232,448, S1's
+// is K1's (L = 256).
+extern "C" size_t attention_tile_smem(int L) {
+  return L <= 128 ? AttnLean::smem(L) : AttnLarge::smem(L);
+}
 extern "C" size_t attention_phased_smem(int L, int H) { return phased_smem(L, H); }
 extern "C" size_t attention_head_batched_smem(int L, int H) {
   return head_batched_smem(L, H);
 }
 
-// S1 (store_alphas = 1: v1; 0: v3) and S3 (p2n = 1, store_alphas = 0: v4).
-// z and p2n are read only with p2n = 1, alphas only with store_alphas = 1.
-// Launches on `stream` and returns cudaGetLastError() (0 when the launch was
-// accepted); does not synchronise.
-extern "C" int attention_phased(const void* qa, const void* ka, const void* vv,
-                                const void* bias, const void* z, void* out,
-                                void* alphas, void* p2n, int N, int L, int H,
-                                int Cz, int reps, int store_alphas,
-                                int with_p2n, void* stream) {
+// S1: out and, with alphas non-null (v1), alphas (N, H, L, L); without
+// (v3) no alpha is stored. rt replicas a block (>= 1, dividing reps; the
+// wrapper passes K1's choice). Launches on `stream` and returns
+// cudaGetLastError() (0 when the launch was accepted); does not
+// synchronise.
+extern "C" int attention_tile(const void* qa, const void* ka, const void* vv,
+                              const void* bias, void* out, void* alphas, int N, int L,
+                              int H, int reps, int rt, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (!shapes_ok(N, L, H, reps) || phased_smem(L, H) > SMEM_BLOCK)
+  if (!shapes_ok(N, L, H, reps) || L > 256 || rt < 1 || reps % rt != 0)
     return (int)cudaErrorInvalidValue;
-  if (with_p2n) {
-    if (store_alphas || H > 16 || Cz % 16 != 0 || Cz < 16 || Cz > SLOT)
-      return (int)cudaErrorInvalidValue;
-    return launch_phased<false, true>(qa, ka, vv, bias, z, out, alphas, p2n, N,
-                                      L, H, Cz, reps, s);
-  }
-  if (store_alphas)
-    return launch_phased<true, false>(qa, ka, vv, bias, z, out, alphas, p2n, N,
-                                      L, H, Cz, reps, s);
-  return launch_phased<false, false>(qa, ka, vv, bias, z, out, alphas, p2n, N,
-                                     L, H, Cz, reps, s);
+  if (alphas)
+    return launch_s1<ALPHA_K2>(qa, ka, vv, bias, out, alphas, N, L, H, reps, rt, s);
+  return launch_s1<ALPHA_NONE>(qa, ka, vv, bias, out, alphas, N, L, H, reps, rt, s);
+}
+
+// S3 (v4): out and p2n. As attention_tile, on `stream`.
+extern "C" int attention_phased(const void* qa, const void* ka, const void* vv,
+                                const void* bias, const void* z, void* out, void* p2n,
+                                int N, int L, int H, int Cz, int reps, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (!shapes_ok(N, L, H, reps) || phased_smem(L, H) > SMEM_BLOCK || H > 16 ||
+      Cz % 16 != 0 || Cz < 16 || Cz > SLOT)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = phased_smem(L, H);
+  int err = set_smem(phased_kernel, smem);
+  if (err) return err;
+  phased_kernel<<<dim3(L / TI, N), NT, smem, s>>>(
+      static_cast<const bf16*>(qa), static_cast<const bf16*>(ka),
+      static_cast<const bf16*>(vv), static_cast<const bf16*>(bias),
+      static_cast<const bf16*>(z), static_cast<bf16*>(out), static_cast<bf16*>(p2n), L, H,
+      Cz, reps);
+  return (int)cudaGetLastError();
 }
 
 // S2: out and alphas.

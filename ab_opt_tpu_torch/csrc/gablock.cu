@@ -60,7 +60,9 @@
 // written by cp.async at the swizzled address.
 // Intermediates that go to device memory between launches: the projections,
 // qa/ka/vvp, alpha (N, H, L, L as (Nc, L, reps*H, L)), the attention values,
-// the feature matrix, x1 and the MLP hiddens.
+// the feature matrix, x1 and the MLP hiddens. Launches 3, 4 and 6-9 also
+// run alone (gablock_attention, gablock_p2n, gablock_gemm), for tests and
+// for the checks of K4 and S1, which run the same tiles.
 
 // Fixed head geometry (the DiffAb defaults): query/key width 32, value width
 // 32, 8 query points, 8 value points, pair width 64, node width 128. The
@@ -884,6 +886,18 @@ cudaError_t launch_k1_attention(const bf16* qa, const bf16* ka, const bf16* vv,
   return launch_attn<AttnLarge>(qa, ka, vv, bias, o, alpha, N, L, H, reps, rt, stream);
 }
 
+// p2n into the feature rows (pitch ko): a block per (64 alpha rows, query
+// row, complex).
+cudaError_t launch_k1_p2n(const bf16* alpha, const bf16* z, bf16* feat, int ko, int Nc, int L,
+                          int H, int reps, cudaStream_t stream) {
+  const size_t bytes = p2n_smem(L, 64);
+  const cudaError_t err = cudaFuncSetAttribute(
+      k1_p2n_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  k1_p2n_kernel<<<dim3((reps * H + 63) / 64, L, Nc), 128, bytes, stream>>>(alpha, z, feat, ko,
+                                                                          L, H, reps);
+  return cudaGetLastError();
+}
 
 // The projection: 128-row blocks, the column tiles split so that the grid
 // covers the SMs at small M (x is then converted once per split).
@@ -947,12 +961,7 @@ int forward_k1(const LayerArgs& a, int rt) {
   K1_CHECK(
       launch_k1_attention(w.qa, w.ka, w.vv, a.bias, w.o, w.alpha, N, L, H, reps, rt, stream));
 
-  const size_t p2n_bytes = p2n_smem(L, 64);
-  K1_CHECK(cudaFuncSetAttribute(k1_p2n_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)p2n_bytes));
-  k1_p2n_kernel<<<dim3((reps * H + 63) / 64, L, Nc), 128, p2n_bytes, stream>>>(
-      w.alpha, a.z, w.feat, ko, L, H, reps);
-  K1_CHECK(cudaGetLastError());
+  K1_CHECK(launch_k1_p2n(w.alpha, a.z, w.feat, ko, Nc, L, H, reps, stream));
   k1_feat_kernel<<<M, 128, 0, stream>>>(w.o, a.R9, a.t, w.feat, ko, H);
   K1_CHECK(cudaGetLastError());
 
@@ -1022,6 +1031,16 @@ extern "C" int gablock_attention(const bf16* qa, const bf16* ka, const bf16* vv,
     return (int)cudaErrorInvalidValue;
   return (int)launch_k1_attention(qa, ka, vv, bias, o, alpha, N, L, H, reps, rt,
                                   reinterpret_cast<cudaStream_t>(stream_ptr));
+}
+
+// K1's p2n launch alone: p2n (N, L, H, 64), the feature rows' p2n columns
+// at the pitch H * 64, from alpha (Nc, L, reps*H, L) and z (Nc, L, L, 64).
+extern "C" int gablock_p2n(const bf16* alpha, const bf16* z, bf16* p2n, int N, int L, int H,
+                           int reps, void* stream_ptr) {
+  if (L % 16 != 0 || L < 16 || L > 256 || reps < 1 || N % reps != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_k1_p2n(alpha, z, p2n, H * CZ, N / reps, L, H, reps,
+                            reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 // K1's GEMM alone, out = epilogue(A . bt^T) with bt (N, K): a_f32 = 1 is the

@@ -120,13 +120,6 @@ __device__ __forceinline__ void red_release(unsigned* p, unsigned v) {
   asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
 }
 
-// cp.async.wait_group with a count known only at run time (0 to 2).
-__device__ __forceinline__ void cp_async_wait_n(int n) {
-  if (n >= 2) cp_async_wait<2>();
-  else if (n == 1) cp_async_wait<1>();
-  else cp_async_wait<0>();
-}
-
 // Between two tiles of one block: the first's copies are done, and the
 // barrier orders its global writes before the second's reads (one block,
 // so CTA scope suffices).
@@ -189,82 +182,9 @@ __device__ __forceinline__ void staged_rows(const bf16* src, int ld, int units,
 // Rows a chunk of assemble (one a warp) and of feat (two a warp).
 constexpr int ASM_CH = NT / 32, FEAT_CH = 2 * NT / 32;
 
-// A p2n item's query rows go through a ring of [z[c, i] | alpha rows]
-// stages, as many as fit (at most three: two rows' copies in flight while
-// one computes; L=128: three, L=256: one).
-// The alpha rows' pitch is at least CZ + 8: each warp's 16 rows are also
-// its staging tile for the 16 x CZ output.
-constexpr int P2N_M = NT / 2;
-__host__ __device__ constexpr int p2n_ald(int L) { return (L > CZ ? L : CZ) + 8; }
-__host__ __device__ constexpr size_t p2n_stage_bytes(int L) {
-  return ((size_t)L * KLD + (size_t)P2N_M * p2n_ald(L)) * 2;
-}
-__host__ __device__ constexpr int p2n_stages(int L) {
-  return 3 * p2n_stage_bytes(L) <= 200704 ? 3 : 2 * p2n_stage_bytes(L) <= 230000 ? 2 : 1;
-}
-
-// z[c, i] (into Zs, pitch KLD) and the 128 alpha rows from m0 (into As,
-// zero past reps*H) of query row i by cp.async, to be waited for by the
-// caller.
-__device__ __forceinline__ void p2n_stage(int m0, int i, int c, const bf16* __restrict__ alpha,
-                                          const bf16* __restrict__ z, bf16* Zs, bf16* As,
-                                          int L, int H, int reps) {
-  const int ALD = p2n_ald(L), RH = reps * H, chunks = L / 8;
-  for (int idx = threadIdx.x; idx < L * 8; idx += NT) {
-    const int j = idx >> 3, cc = (idx & 7) * 8;
-    cp_async16(&Zs[j * KLD + cc], &z[(((size_t)c * L + i) * L + j) * CZ + cc], true);
-  }
-  for (int idx = threadIdx.x; idx < P2N_M * chunks; idx += NT) {
-    const int r = idx / chunks, cc = (idx - r * chunks) * 8, m = m0 + r;
-    cp_async16(&As[r * ALD + cc],
-               m < RH ? &alpha[(((size_t)c * L + i) * RH + m) * L + cc] : alpha, m < RH);
-  }
-}
-
-// p2n_tile's product on a staged row (Zs: z[c, i], As: 128 alpha rows, pitch
-// p2n_ald(L)), as K1's attention computes alpha . V: warp w's 16 alpha rows
-// by mma.sync m16n8k16 (the A fragments by ldmatrix, z's by
-// ldmatrix.trans), K in 16-key steps in order as wmma takes them, so the
-// sums are p2n_tile's; rounded to bf16 into the warp's own alpha rows (read
-// by no one else) and stored 16 bytes at a time.
-__device__ __forceinline__ void p2n_mma(int m0, int i, int c, const bf16* Zs, bf16* As,
-                                        bf16* __restrict__ feat, int ko, int L, int H,
-                                        int reps) {
-  const int ALD = p2n_ald(L), RH = reps * H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  bf16* Aw = As + warp * 16 * ALD;
-  float oc[CZ / 8][4];
-#pragma unroll
-  for (int j = 0; j < CZ / 8; ++j) oc[j][0] = oc[j][1] = oc[j][2] = oc[j][3] = 0.0f;
-  for (int kk = 0; kk < L / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, Aw + (lane & 15) * ALD + kk * 16 + (lane >> 4) * 8);
-    const bf16* zr = Zs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * KLD + (lane >> 4) * 8;
-#pragma unroll
-    for (int d = 0; d < CZ / 16; ++d) {
-      uint32_t zb[4];
-      ldsm_x4_t(zb, zr + d * 16);
-      mma_bf16(oc[2 * d], a, zb[0], zb[1]);
-      mma_bf16(oc[2 * d + 1], a, zb[2], zb[3]);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < CZ / 8; ++j) {
-    st_shared_u32(Aw + g * ALD + j * 8 + 2 * t, pack2(oc[j][0], oc[j][1]));
-    st_shared_u32(Aw + (g + 8) * ALD + j * 8 + 2 * t, pack2(oc[j][2], oc[j][3]));
-  }
-  __syncwarp();
-#pragma unroll
-  for (int u = lane; u < 16 * CZ / 8; u += 32) {
-    const int r = u / (CZ / 8), q = u % (CZ / 8), m = m0 + warp * 16 + r;
-    if (m < RH) {
-      const int n = c * reps + m / H, h = m % H;
-      *reinterpret_cast<uint4*>(feat + ((size_t)n * L + i) * ko + h * CZ + q * 8) =
-          ld_shared_v4(Aw + r * ALD + q * 8);
-    }
-  }
-}
+// A p2n item's query rows go through the ring of k1_tiles.cuh's p2n_stage
+// (K4's p2n launch runs the same), on K5's block.
+static_assert(P2N_NT == NT, "p2n_stage and p2n_mma take K5's whole block");
 
 __host__ __device__ constexpr int proj_units(int H) { return H * 168 * 2 / 16; }
 __host__ __device__ constexpr int o_units(int H) { return H * SLOT * 2 / 16; }

@@ -32,16 +32,12 @@
 // 128, H = 12, Cz = 64, bf16), moves ~254 MB (qa, ka, vvp, out and p2n at
 // 50 MB each; z 2 MB and bias 0.4 MB, shared by the replicas) and does
 // ~19.3 GFLOP (logits, alpha . vvp and alpha . z at 6.4 each): bounded by
-// bytes (~76 us) too. What it saves is the (N, H, L, L) alphas, ~100 MB
-// written and read again per layer at that fan-out. The p2n operand differs
-// for every query row (row i reads its own (L, Cz) slab of z), so a block
-// owns a query tile of one trajectory for all heads, keeps every head's
-// alpha for the tile in shared memory, and reads each z row once per
-// trajectory and tile instead of once per head; the 2 MB z of a complex
-// stays in the 50 MB L2 across its replicas. In bf16 up to L = 256 its
-// three products run on the tensor cores (wmma 16x16x16, f32 accumulators),
-// elsewhere on K2's CUDA-core f32 tiles. Sharing z across replicas (K1's
-// M = reps H), wgmma and TMA are later work.
+// bytes (~76 us) too. The p2n operand differs for every query row (row i
+// reads its own (L, Cz) slab z[c, i]) and is shared by the reps * H
+// (replica, head) alpha rows of that row: K1's M = reps H. In bf16 up to
+// L = 256 (Cz = 64, H a multiple of 4) K4 runs on K1's replica-group
+// attention tile (csrc/k1_tiles.cuh; see "K4, tiles" below); float32, and
+// bf16 past L = 256, take K2's CUDA-core f32 tiles (fwd_p2n_kernel).
 //
 // Design. The TPU grid walks one trajectory at a time and holds whole L x L
 // blocks in VMEM; here blocks run in parallel, so every pass is a grid over
@@ -59,30 +55,18 @@
 // dout . vvp^T) instead of reading dbias back, so dka is built from f32 dlog
 // exactly as the TPU kernel builds it, not from dlog rounded to bf16. Two
 // launches per backward call, no atomics.
-//   fwd_p2n_mma_kernel  bf16, L <= 256: per 16 query rows of one
-//                   trajectory, all heads; every head's alpha for the tile
-//                   (16 H x L bf16, 53 KB at L = 128) stays in shared memory
-//                   beside the head's whole K and V; one launch, no alphas
-//                   in device memory.
-//   fwd_p2n_kernel  float32, or bf16 past L = 256: the same per TQ query
-//                   rows (TQ = 32, 16, 8 or 4, the most that fits; alpha in
-//                   T, H x TQ x L), products on the CUDA cores.
+//   fwd_p2n_kernel  float32, or bf16 past L = 256: K4 per TQ query rows of
+//                   one trajectory, all heads (TQ = 32, 16, 8 or 4, the most
+//                   that fits; alpha in T, H x TQ x L, in shared memory),
+//                   products on the CUDA cores.
 //
 // L is a runtime value (the wrapper takes multiples of 16 up to 512; ragged
 // tiles are masked here), H and N are grid dimensions.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-#include <math.h>
-
-typedef __nv_bfloat16 bf16;
-using namespace nvcuda;
+#include "k1_tiles.cuh"
 
 namespace {
 
-constexpr int SLOT = 64;       // per-head width of qa / ka / vvp
 constexpr int NT = 256;        // threads per block
 constexpr int TQ = 32;         // query rows per block (fwd, bwd pass 1)
 constexpr int TK = 64;         // keys per staged tile (fwd, bwd pass 1)
@@ -95,12 +79,6 @@ constexpr int P2N_QUADS = 4;   // column quads a thread owns there: H Cz <= 1024
 // Shared memory of one block, and of one SM (sm_90: 227 KB and 228 KB; the
 // runtime reserves 1 KB a block).
 constexpr size_t SMEM_BLOCK = 232448, SMEM_SM = 233472, SMEM_RESERVED = 1024;
-// K4's bf16 tensor-core variant: 16 query rows a block (one wmma row tile),
-// staged 64-wide rows at a bf16 pitch of KLD (rows 16 apart stay 32-byte
-// aligned), L up to P2N_MMA_MAX_L.
-constexpr int WQ = 16;
-constexpr int KLD = SLOT + 8;
-constexpr int P2N_MMA_MAX_L = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -109,17 +87,6 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 // rows x 64 slot of head h, rows r0.. of trajectory n, from an
@@ -412,160 +379,68 @@ fwd_p2n_kernel(const T* __restrict__ qa, const T* __restrict__ ka,
   }
 }
 
-// K4 for bf16 on the tensor cores (wmma 16x16x16, f32 accumulators): the
-// same function, one block = 16 query rows of trajectory n, all heads, 8
-// warps. Shared memory (bytes 32-aligned at every wmma pointer):
-//   Ks, Vs  L x KLD     bf16  the head's keys and values; in the p2n phase
-//                             the z rows of two queries
-//   Qs      16 x KLD    bf16  the head's query rows
-//   S       16 x SLD    f32   the head's logits, then alpha . vvp; in the
-//                             p2n phase two queries' (16 x Cz) products
-//   A       ((WQ - 1) H + 16) x ALD bf16: alpha[h] of query row r at row
-//                             r H + h (ALD = L + 16), so the 16 x 16 tile at
-//                             row r H covers every head of query r (rows
-//                             past its H heads belong to the next query or
-//                             the tail; their products are not stored), and
-//                             head h's (16 x L) alpha is rows h + H r.
-// Per head: logits (warp w: key tiles w, w + 8, ...), exact softmax in f32
-// (2 rows a warp), alpha rounded to bf16 once into A, out = alpha . vvp
-// (warps 0-3, one 16-column tile each). Then p2n, two query rows at a time
-// (warps 0-3 the first, 4-7 the second, one Cz/16-column tile each).
-__host__ __device__ inline int p2n_mma_sld(int L) { return (L > 128 ? L : 128) + 4; }
-__host__ __device__ inline int p2n_mma_ald(int L) { return L + 16; }
+// ------------------------------------------------------------ K4, tiles
+// bf16, L a multiple of 16 up to 256, Cz = CZ: K1's replica-group attention
+// tile (csrc/k1_tiles.cuh) with the replicas of a complex sharing z[c, i],
+// as two launches:
+//   k4_attn_kernel  k1_attn_tile (AttnLean up to L = 128, two blocks an SM;
+//                   AttnLarge past it) with alpha in K1's (Nc, L, reps*H, L)
+//                   layout into a workspace the wrapper keeps per shape; o
+//                   is K1's attention launch's, bit for bit;
+//   k4_p2n_kernel   p2n_stage / p2n_mma (K5's p2n) over M = reps*H alpha
+//                   rows sharing each z[c, i]: a block per (128 alpha rows,
+//                   4 query rows, complex), two stages where two blocks fit
+//                   an SM; p2n is K1's p2n launch's, bit for bit.
+// Alpha goes through device memory (100 MB each way at N = 256, L = 128):
+// the bytes a block would have to stream instead, to keep it on the chip,
+// cost more. The fused tile that kept a (64 query rows x 2 heads x 4
+// replicas) block's alpha rows in shared memory read z[c, i] once per
+// block, 1.13 GB from L2 a call, and took 0.5364 ms against this
+// composition's 0.2640 on an H100 80GB HBM3 at 700 W (chip_smoke.py phase
+// 7; PERF.md).
 
-__global__ void __launch_bounds__(NT)
-fwd_p2n_mma_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
-                   const bf16* __restrict__ vv, const bf16* __restrict__ bias,
-                   const bf16* __restrict__ z, bf16* __restrict__ out,
-                   bf16* __restrict__ p2n, int L, int H, int Cz, int reps) {
+// The attention: block = (query tile, head h, replicas blockIdx.z * rt ..
+// + rt - 1), as K1's attention launch.
+template <class Plan>
+__global__ void __launch_bounds__(Plan::QW * 32, 1)
+k4_attn_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
+               const bf16* __restrict__ vv, const bf16* __restrict__ bias,
+               bf16* __restrict__ o, bf16* __restrict__ alpha, int L, int H, int reps,
+               int rt) {
   extern __shared__ __align__(128) unsigned char smraw[];
-  const int SLD = p2n_mma_sld(L), ALD = p2n_mma_ald(L);
-  bf16* Ks = reinterpret_cast<bf16*>(smraw);
-  bf16* Vs = Ks + L * KLD;
-  bf16* Qs = Vs + L * KLD;
-  float* S = reinterpret_cast<float*>(Qs + WQ * KLD);
-  bf16* A = reinterpret_cast<bf16*>(S + WQ * SLD);
-  const int n = blockIdx.y, c = n / reps, i0 = blockIdx.x * WQ;
-  const int HD = H * SLOT, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  const int h = blockIdx.y, n0 = blockIdx.z * rt;
+  k1_attn_tile<Plan, ALPHA_K1>(blockIdx.x * Plan::QT, h, n0, rt, qa, ka, vv,
+                               bias + ((size_t)(n0 / reps) * H + h) * L * L, o, alpha, L, H,
+                               reps, smraw);
+}
 
-  for (int h = 0; h < H; ++h) {
-    __syncthreads();                 // the previous head is done with every buffer
-    for (int idx = tid; idx < L * 8; idx += NT) {
-      const int j = idx >> 3, cc = (idx & 7) * 8;
-      const size_t g = ((size_t)n * L + j) * HD + (size_t)h * SLOT + cc;
-      *reinterpret_cast<uint4*>(&Ks[j * KLD + cc]) = *reinterpret_cast<const uint4*>(&ka[g]);
-      *reinterpret_cast<uint4*>(&Vs[j * KLD + cc]) = *reinterpret_cast<const uint4*>(&vv[g]);
-    }
-    for (int idx = tid; idx < WQ * 8; idx += NT) {
-      const int r = idx >> 3, cc = (idx & 7) * 8, i = i0 + r;
-      uint4 v = zero4;
-      if (i < L)
-        v = *reinterpret_cast<const uint4*>(&qa[((size_t)n * L + i) * HD + (size_t)h * SLOT + cc]);
-      *reinterpret_cast<uint4*>(&Qs[r * KLD + cc]) = v;
-    }
-    __syncthreads();
-
-    for (int jt = warp; jt < L / 16; jt += NT / 32) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < SLOT / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(qf, Qs + kk * 16, KLD);
-        wmma::load_matrix_sync(kf, Ks + jt * 16 * KLD + kk * 16, KLD);
-        wmma::mma_sync(acc, qf, kf, acc);
-      }
-      wmma::store_matrix_sync(S + jt * 16, acc, SLD, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    const bf16* bbase = bias + ((size_t)c * H + h) * L * L;
-    for (int r = warp; r < WQ; r += NT / 32) {
-      const int i = i0 + r;
-      float* srow = S + r * SLD;
-      bf16* arow = A + ((size_t)r * H + h) * ALD;
-      if (i >= L) {
-        for (int j = lane; j < L; j += 32) arow[j] = __float2bfloat16(0.0f);
-        continue;
-      }
-      const bf16* brow = bbase + (size_t)i * L;
-      float mx = -INFINITY;
-      for (int j = lane; j < L; j += 32) {
-        const float v = srow[j] + __bfloat162float(brow[j]);
-        srow[j] = v;
-        mx = fmaxf(mx, v);
-      }
-      mx = warp_max(mx);
-      float s = 0.0f;
-      for (int j = lane; j < L; j += 32) {
-        const float e = expf(srow[j] - mx);
-        srow[j] = e;
-        s += e;
-      }
-      const float inv = 1.0f / warp_sum(s);
-      for (int j = lane; j < L; j += 32) arow[j] = __float2bfloat16(srow[j] * inv);
-    }
-    __syncthreads();
-
-    if (warp < SLOT / 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-      for (int kt = 0; kt < L / 16; ++kt) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, A + (size_t)h * ALD + kt * 16, H * ALD);
-        wmma::load_matrix_sync(vf, Vs + kt * 16 * KLD + warp * 16, KLD);
-        wmma::mma_sync(acc, pf, vf, acc);
-      }
-      wmma::store_matrix_sync(S + warp * 16, acc, SLD, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < WQ * SLOT; idx += NT) {
-      const int r = idx / SLOT, d = idx % SLOT, i = i0 + r;
-      if (i < L)
-        out[((size_t)n * L + i) * HD + (size_t)h * SLOT + d] =
-            __float2bfloat16(S[r * SLD + d]);
-    }
+// The p2n: block = (P2N_M alpha rows from blockIdx.x * P2N_M, query rows
+// blockIdx.y * rows .., complex blockIdx.z), the rows through a ring of ns
+// p2n_stage stages; p2n (N, L, H, CZ) is the feature rows at pitch H CZ.
+__global__ void __launch_bounds__(P2N_NT, 1)
+k4_p2n_kernel(const bf16* __restrict__ alpha, const bf16* __restrict__ z,
+              bf16* __restrict__ p2n, int L, int H, int reps, int rows, int ns) {
+  extern __shared__ __align__(128) unsigned char smraw[];
+  const int m0 = blockIdx.x * P2N_M, i0 = blockIdx.y * rows, c = blockIdx.z;
+  const int i1 = min(L, i0 + rows);
+  const size_t sb = p2n_stage_bytes(L);
+  auto Zs = [&](int st) { return reinterpret_cast<bf16*>(smraw + st * sb); };
+  auto stage = [&](int i, int st) {
+    p2n_stage(m0, i, c, alpha, z, Zs(st), Zs(st) + L * KLD, L, H, reps);
+    cp_async_commit();
+  };
+  for (int k = 0; k < ns - 1; ++k) {
+    if (i0 + k < i1) stage(i0 + k, k);
+    else cp_async_commit();
   }
-
-  const int cz8 = Cz / 8;
-  for (int r0 = 0; r0 < WQ; r0 += 2) {
+  for (int i = i0; i < i1; ++i) {
+    const int st = (i - i0) % ns;
+    if (i + ns - 1 < i1) stage(i + ns - 1, (st + ns - 1) % ns);
+    else cp_async_commit();
+    cp_async_wait_n(ns - 1);
     __syncthreads();
-    for (int idx = tid; idx < 2 * L * cz8; idx += NT) {
-      const int q = idx / (L * cz8), rest = idx - q * (L * cz8);
-      const int j = rest / cz8, cc = (rest % cz8) * 8, i = i0 + r0 + q;
-      uint4 v = zero4;
-      if (i < L)
-        v = *reinterpret_cast<const uint4*>(&z[(((size_t)c * L + i) * L + j) * Cz + cc]);
-      *reinterpret_cast<uint4*>(&(q ? Vs : Ks)[j * KLD + cc]) = v;
-    }
+    p2n_mma(m0, i, c, Zs(st), Zs(st) + L * KLD, p2n, H * CZ, L, H, reps);
     __syncthreads();
-    const int q = warp >> 2, jc = warp & 3;
-    if (jc < Cz / 16) {
-      const bf16* zb = q ? Vs : Ks;
-      const bf16* ab = A + (size_t)(r0 + q) * H * ALD;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-      for (int kt = 0; kt < L / 16; ++kt) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> zf;
-        wmma::load_matrix_sync(af, ab + kt * 16, ALD);
-        wmma::load_matrix_sync(zf, zb + kt * 16 * KLD + jc * 16, KLD);
-        wmma::mma_sync(acc, af, zf, acc);
-      }
-      wmma::store_matrix_sync(S + q * SLOT + jc * 16, acc, SLD, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < 2 * H * Cz; idx += NT) {
-      const int q = idx / (H * Cz), rest = idx - q * (H * Cz);
-      const int hh = rest / Cz, d = rest % Cz, i = i0 + r0 + q;
-      if (i < L)
-        p2n[(((size_t)n * L + i) * H + hh) * Cz + d] =
-            __float2bfloat16(S[hh * SLD + q * SLOT + d]);
-    }
   }
 }
 
@@ -741,18 +616,19 @@ int launch_fwd(const void* qa, const void* ka, const void* vv,
   return (int)cudaGetLastError();
 }
 
-size_t p2n_smem(int tq, int L, int H, size_t tsize) {
+size_t cc_p2n_smem(int tq, int L, int H, size_t tsize) {
   return ((size_t)(tq + TK) * TLD + (size_t)tq * (L + 1)) * sizeof(float)
          + (size_t)H * tq * L * tsize;
 }
 
-// K4's query rows a block: the most (32, 16, 8 or 4) with which two blocks
-// fit on an SM, else the most with which one does; 0 if none fits.
-int p2n_tile(int L, int H, size_t tsize) {
+// K4's query rows a block on the CUDA cores: the most (32, 16, 8 or 4) with
+// which two blocks fit on an SM, else the most with which one does; 0 if
+// none fits.
+int cc_p2n_rows(int L, int H, size_t tsize) {
   const int rows[] = {32, 16, 8, 4};
   for (int blocks = 2; blocks >= 1; --blocks)
     for (int tq : rows) {
-      const size_t smem = p2n_smem(tq, L, H, tsize);
+      const size_t smem = cc_p2n_smem(tq, L, H, tsize);
       if (smem <= SMEM_BLOCK && blocks * (smem + SMEM_RESERVED) <= SMEM_SM)
         return tq;
     }
@@ -763,24 +639,12 @@ template <typename T, int TQ>
 int launch_fwd_p2n_rows(const T* qa, const T* ka, const T* vv, const T* bias,
                         const T* z, T* out, T* p2n, int N, int L, int H,
                         int Cz, int reps, cudaStream_t stream) {
-  const size_t smem = p2n_smem(TQ, L, H, sizeof(T));
+  const size_t smem = cc_p2n_smem(TQ, L, H, sizeof(T));
   int err = set_smem(fwd_p2n_kernel<T, TQ>, smem);
   if (err) return err;
   fwd_p2n_kernel<T, TQ><<<dim3((L + TQ - 1) / TQ, N), NT, smem, stream>>>(
       qa, ka, vv, bias, z, out, p2n, L, H, Cz, reps);
   return (int)cudaGetLastError();
-}
-
-size_t p2n_mma_smem(int L, int H) {
-  return (size_t)(2 * L + WQ) * KLD * sizeof(bf16)
-         + (size_t)WQ * p2n_mma_sld(L) * sizeof(float)
-         + (size_t)((WQ - 1) * H + 16) * p2n_mma_ald(L) * sizeof(bf16);
-}
-
-// Whether K4 takes the bf16 tensor-core variant at these shapes.
-bool p2n_mma(int L, int H, int Cz, int dtype) {
-  return dtype == 1 && L <= P2N_MMA_MAX_L && H <= 16 && Cz % 16 == 0
-         && Cz <= SLOT && p2n_mma_smem(L, H) <= SMEM_BLOCK;
 }
 
 template <typename T>
@@ -789,30 +653,49 @@ int launch_fwd_p2n(const void* qa, const void* ka, const void* vv,
                    int N, int L, int H, int Cz, int reps, cudaStream_t stream) {
   if (Cz % 4 != 0 || Cz > TK * TLD / P2N_ROWS || H * Cz > 1024)
     return (int)cudaErrorInvalidValue;
-  if (p2n_mma(L, H, Cz, sizeof(T) == sizeof(bf16))) {
-    const size_t smem = p2n_mma_smem(L, H);
-    int err = set_smem(fwd_p2n_mma_kernel, smem);
-    if (err) return err;
-    fwd_p2n_mma_kernel<<<dim3((L + WQ - 1) / WQ, N), NT, smem, stream>>>(
-        static_cast<const bf16*>(qa), static_cast<const bf16*>(ka),
-        static_cast<const bf16*>(vv), static_cast<const bf16*>(bias),
-        static_cast<const bf16*>(z), static_cast<bf16*>(out),
-        static_cast<bf16*>(p2n), L, H, Cz, reps);
-    return (int)cudaGetLastError();
-  }
   const auto args = [&](auto launch) {
     return launch(static_cast<const T*>(qa), static_cast<const T*>(ka),
                   static_cast<const T*>(vv), static_cast<const T*>(bias),
                   static_cast<const T*>(z), static_cast<T*>(out),
                   static_cast<T*>(p2n), N, L, H, Cz, reps, stream);
   };
-  switch (p2n_tile(L, H, sizeof(T))) {
+  switch (cc_p2n_rows(L, H, sizeof(T))) {
     case 32: return args(launch_fwd_p2n_rows<T, 32>);
     case 16: return args(launch_fwd_p2n_rows<T, 16>);
     case 8: return args(launch_fwd_p2n_rows<T, 8>);
     case 4: return args(launch_fwd_p2n_rows<T, 4>);
   }
   return (int)cudaErrorInvalidConfiguration;
+}
+
+// K4's p2n stages: two where two blocks of them fit an SM, else one.
+constexpr int k4_p2n_stages(int L) {
+  return 2 * (2 * p2n_stage_bytes(L) + SMEM_RESERVED) <= SMEM_SM ? 2 : 1;
+}
+
+int launch_k4_p2n(const bf16* alpha, const bf16* z, bf16* p2n, int N, int L, int H, int reps,
+                  int rows, int ns, cudaStream_t stream) {
+  const size_t smem = ns * p2n_stage_bytes(L);
+  int err = set_smem(k4_p2n_kernel, smem);
+  if (err) return err;
+  k4_p2n_kernel<<<dim3((reps * H + P2N_M - 1) / P2N_M, (L + rows - 1) / rows, N / reps), P2N_NT,
+                  smem, stream>>>(alpha, z, p2n, L, H, reps, rows, ns);
+  return (int)cudaGetLastError();
+}
+
+// The attention into K1's alpha layout in `alpha`, then p2n over P2N_M-row
+// blocks of `rows` query rows each.
+template <class Plan>
+int launch_k4(const bf16* qa, const bf16* ka, const bf16* vv, const bf16* bias,
+                       const bf16* z, bf16* out, bf16* p2n, bf16* alpha, int N, int L, int H,
+                       int reps, int rt, int rows, cudaStream_t stream) {
+  int err = set_smem(k4_attn_kernel<Plan>, Plan::smem(L));
+  if (err) return err;
+  k4_attn_kernel<Plan><<<dim3((L + Plan::QT - 1) / Plan::QT, H, N / rt), Plan::QW * 32,
+                         Plan::smem(L), stream>>>(qa, ka, vv, bias, out, alpha, L, H, reps, rt);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_k4_p2n(alpha, z, p2n, N, L, H, reps, rows, k4_p2n_stages(L), stream);
 }
 
 template <typename T>
@@ -857,8 +740,9 @@ extern "C" int ipa_attention_fwd(const void* qa, const void* ka,
   return (int)cudaErrorInvalidValue;
 }
 
-// K4: z (N / reps, L, L, Cz) per complex; out (N, L, H * 64) and p2n
-// (N, L, H, Cz) in the input type; no alphas output.
+// K4 on the CUDA cores (float32, or bf16 past L = 256): z (N / reps, L, L,
+// Cz) per complex; out (N, L, H * 64) and p2n (N, L, H, Cz) in the input
+// type; no alphas output.
 extern "C" int ipa_attention_fwd_p2n(const void* qa, const void* ka,
                                      const void* vv, const void* bias,
                                      const void* z, void* out, void* p2n,
@@ -874,11 +758,39 @@ extern "C" int ipa_attention_fwd_p2n(const void* qa, const void* ka,
   return (int)cudaErrorInvalidValue;
 }
 
-// The query rows a K4 block takes at (L, H, Cz, dtype), 0 if no tile fits;
-// negative when the block runs on the tensor cores.
-extern "C" int ipa_attention_fwd_p2n_tile(int L, int H, int Cz, int dtype) {
-  if (p2n_mma(L, H, Cz, dtype)) return -WQ;
-  return p2n_tile(L, H, dtype == 0 ? sizeof(float) : sizeof(bf16));
+// The query rows a CUDA-core K4 block takes at (L, H, dtype), 0 if no tile
+// fits.
+extern "C" int ipa_attention_fwd_p2n_tile(int L, int H, int dtype) {
+  return cc_p2n_rows(L, H, dtype == 0 ? sizeof(float) : sizeof(bf16));
+}
+
+// K4 on K1's attention tile (bf16, L a multiple of 16 up to 256, Cz = 64,
+// H a multiple of 4): alpha is an (N / reps, L, reps H, L) bf16 workspace;
+// rt replicas an attention block, `rows` query rows a p2n block. On
+// `stream`; returns the first non-zero cudaGetLastError().
+extern "C" int ipa_attention_fwd_p2n_tiles(const bf16* qa, const bf16* ka, const bf16* vv,
+                                           const bf16* bias, const bf16* z, bf16* out,
+                                           bf16* p2n, bf16* alpha, int N, int L, int H,
+                                           int reps, int rt, int rows, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (L % 16 != 0 || L < 16 || L > 256 || H < 4 || H % 4 != 0 || reps < 1 || N % reps != 0 ||
+      rt < 1 || reps % rt != 0 || rows < 1 || !alpha)
+    return (int)cudaErrorInvalidValue;
+  if (L <= 128)
+    return launch_k4<AttnLean>(qa, ka, vv, bias, z, out, p2n, alpha, N, L, H, reps, rt, rows, s);
+  return launch_k4<AttnLarge>(qa, ka, vv, bias, z, out, p2n, alpha, N, L, H, reps, rt, rows, s);
+}
+
+// K4's tile plan at L, for the wrapper's check: [attention smem, p2n smem,
+// attention query rows, p2n stages]. Returns 0, or an error for an L it
+// does not take.
+extern "C" int ipa_attention_fwd_p2n_tile_plan(int L, long long* out) {
+  if (L % 16 != 0 || L < 16 || L > 256) return (int)cudaErrorInvalidValue;
+  out[0] = (long long)(L <= 128 ? AttnLean::smem(L) : AttnLarge::smem(L));
+  out[1] = (long long)(k4_p2n_stages(L) * p2n_stage_bytes(L));
+  out[2] = L <= 128 ? AttnLean::QT : AttnLarge::QT;
+  out[3] = k4_p2n_stages(L);
+  return 0;
 }
 
 // rowsum: (N, H, L) float32 scratch written by the first pass.

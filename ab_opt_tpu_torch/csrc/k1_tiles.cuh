@@ -10,13 +10,16 @@
 //                     through wgmma, x's row block resident (256 threads)
 //   assemble_row<G>   one row of qa / ka / vvp from proj, R, t (G threads;
 //                     the row in device memory or staged in shared memory)
-//   k1_attn_tile<P>   the replica-group attention: (query tile, head, rt
+//   k1_attn_tile<P,A> the replica-group attention: (query tile, head, rt
 //                     replicas of one complex); mma.sync logits, softmax and
-//                     alpha . V in registers (P::QW warps)
+//                     alpha . V in registers (P::QW warps); alpha out in K1's
+//                     layout, K2's or not at all (A: AlphaOut)
 //   p2n_tile<NTH>     16 NTH / 32 alpha rows of one (query row, complex)
-//                     times z[c, i] into the feature rows (NTH threads; K5
-//                     stages the rows ahead and takes the product as the
-//                     attention takes alpha . V, with the same sums)
+//                     times z[c, i] into the feature rows (NTH threads)
+//   p2n_stage/p2n_mma the same product on 128 alpha rows staged by cp.async
+//                     ahead, by mma.sync as the attention takes alpha . V,
+//                     with p2n_tile's sums (256 threads; K5's p2n items and
+//                     K4's p2n launch, csrc/ipa_attention.cu)
 //   feat_row<G>       one row's node and local-frame point features (G; o's
 //                     row in device memory or staged in shared memory)
 //   gemm_tile<E, WG>  64 WG rows x 128 columns through wgmma with the bf16
@@ -94,6 +97,13 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp.async.wait_group with a count known only at run time (0 to 2).
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n >= 2) cp_async_wait<2>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
 }
 
 // Shared-memory writes of this thread (st.shared, cp.async) become visible
@@ -355,6 +365,86 @@ __device__ __forceinline__ void p2n_tile(int m0, int i, int c, const bf16* __res
   }
 }
 
+// K5's p2n items and K4's p2n launch: 256 threads, 128 alpha rows a block;
+// a block's query rows go through a ring of [z[c, i] | alpha rows] stages,
+// as many as fit (at most three: two rows' copies in flight while one
+// computes; L=128: three, L=256: one). The alpha rows' pitch is at least
+// CZ + 8: each warp's 16 rows are also its staging tile for the 16 x CZ
+// output.
+constexpr int P2N_NT = 256;
+constexpr int P2N_M = P2N_NT / 2;
+__host__ __device__ constexpr int p2n_ald(int L) { return (L > CZ ? L : CZ) + 8; }
+__host__ __device__ constexpr size_t p2n_stage_bytes(int L) {
+  return ((size_t)L * KLD + (size_t)P2N_M * p2n_ald(L)) * 2;
+}
+__host__ __device__ constexpr int p2n_stages(int L) {
+  return 3 * p2n_stage_bytes(L) <= 200704 ? 3 : 2 * p2n_stage_bytes(L) <= 230000 ? 2 : 1;
+}
+
+// z[c, i] (into Zs, pitch KLD) and the 128 alpha rows from m0 (into As,
+// zero past reps*H) of query row i by cp.async, to be waited for by the
+// caller. alpha is K1's (Nc, L, reps*H, L).
+__device__ __forceinline__ void p2n_stage(int m0, int i, int c, const bf16* __restrict__ alpha,
+                                          const bf16* __restrict__ z, bf16* Zs, bf16* As,
+                                          int L, int H, int reps) {
+  const int ALD = p2n_ald(L), RH = reps * H, chunks = L / 8;
+  for (int idx = threadIdx.x; idx < L * 8; idx += P2N_NT) {
+    const int j = idx >> 3, cc = (idx & 7) * 8;
+    cp_async16(&Zs[j * KLD + cc], &z[(((size_t)c * L + i) * L + j) * CZ + cc], true);
+  }
+  for (int idx = threadIdx.x; idx < P2N_M * chunks; idx += P2N_NT) {
+    const int r = idx / chunks, cc = (idx - r * chunks) * 8, m = m0 + r;
+    cp_async16(&As[r * ALD + cc],
+               m < RH ? &alpha[(((size_t)c * L + i) * RH + m) * L + cc] : alpha, m < RH);
+  }
+}
+
+// p2n_tile's product on a staged row (Zs: z[c, i], As: 128 alpha rows, pitch
+// p2n_ald(L)), as K1's attention computes alpha . V: warp w's 16 alpha rows
+// by mma.sync m16n8k16 (the A fragments by ldmatrix, z's by
+// ldmatrix.trans), K in 16-key steps in order as wmma takes them, so the
+// sums are p2n_tile's; rounded to bf16 into the warp's own alpha rows (read
+// by no one else) and stored 16 bytes at a time into the feature rows (row
+// pitch ko; K4 passes its (N, L, H, CZ) output with ko = H CZ).
+__device__ __forceinline__ void p2n_mma(int m0, int i, int c, const bf16* Zs, bf16* As,
+                                        bf16* __restrict__ feat, int ko, int L, int H,
+                                        int reps) {
+  const int ALD = p2n_ald(L), RH = reps * H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16* Aw = As + warp * 16 * ALD;
+  float oc[CZ / 8][4];
+#pragma unroll
+  for (int j = 0; j < CZ / 8; ++j) oc[j][0] = oc[j][1] = oc[j][2] = oc[j][3] = 0.0f;
+  for (int kk = 0; kk < L / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, Aw + (lane & 15) * ALD + kk * 16 + (lane >> 4) * 8);
+    const bf16* zr = Zs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * KLD + (lane >> 4) * 8;
+#pragma unroll
+    for (int d = 0; d < CZ / 16; ++d) {
+      uint32_t zb[4];
+      ldsm_x4_t(zb, zr + d * 16);
+      mma_bf16(oc[2 * d], a, zb[0], zb[1]);
+      mma_bf16(oc[2 * d + 1], a, zb[2], zb[3]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < CZ / 8; ++j) {
+    st_shared_u32(Aw + g * ALD + j * 8 + 2 * t, pack2(oc[j][0], oc[j][1]));
+    st_shared_u32(Aw + (g + 8) * ALD + j * 8 + 2 * t, pack2(oc[j][2], oc[j][3]));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int u = lane; u < 16 * CZ / 8; u += 32) {
+    const int r = u / (CZ / 8), q = u % (CZ / 8), m = m0 + warp * 16 + r;
+    if (m < RH) {
+      const int n = c * reps + m / H, h = m % H;
+      *reinterpret_cast<uint4*>(feat + ((size_t)n * L + i) * ko + h * CZ + q * 8) =
+          ld_shared_v4(Aw + r * ALD + q * 8);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ feat
 // One row (G threads). Feature row layout (the module's planar
 // out_transform rows): [p2n (H*CZ, written by p2n_tile) | node (H*VD) |
@@ -420,15 +510,29 @@ struct AttnPlan {
 // L=128: one block an SM). 128 < L <= 256: 4 warps, 64 query rows, two
 // stages (199,680 bytes at L=256). K5's blocks have 8 warps, so past L=128
 // it takes 128 query rows and one stage (159,744 bytes at L=256).
+// S1 and K4 (csrc/attention_variants.cu, csrc/ipa_attention.cu) take
+// AttnLean up to L=128: 8 warps and one stage (90,112 bytes at L=128), so
+// two blocks share an SM and one's loads overlap the other's math; the same
+// bits as AttnSmall, and S1's v3 at N=256 in 0.1243 ms against 0.1652 with
+// AttnSmall on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 11).
 using AttnSmall = AttnPlan<128, 8, 3>;
+using AttnLean = AttnPlan<128, 8, 1>;
 using AttnLarge = AttnPlan<256, 4, 2>;
 using AttnWide = AttnPlan<256, 8, 1>;
 static_assert(AttnSmall::smem(128) <= 232448, "K1's attention plan exceeds sm_90 at L=128");
+static_assert(2 * (AttnLean::smem(128) + 1024) <= 233472, "two lean tiles must share an SM");
 static_assert(AttnLarge::smem(256) <= 232448, "K1's attention plan exceeds sm_90 at L=256");
 static_assert(AttnWide::smem(256) <= 232448, "K5's attention plan exceeds sm_90 at L=256");
 
-// One warp's 16 query rows of one replica: logits, softmax, alpha, o.
-template <int KMAX>
+// Where the tile's alpha goes: K1's (Nc, L, reps*H, L) layout (the rows
+// p2n reads), K2's (N, H, L, L) layout (S1's v1), or nowhere (S1's v3): the
+// 16-byte alpha stores then compile away. o is the same in all three.
+enum AlphaOut { ALPHA_K1 = 0, ALPHA_K2 = 1, ALPHA_NONE = 2 };
+
+// One warp's 16 query rows of one replica: logits, softmax, alpha (to arow,
+// rows a_ld apart, in device or shared memory; none without STORE_ALPHA),
+// o.
+template <int KMAX, bool STORE_ALPHA = true>
 __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf16* Qw,
                                              const bf16* Bw, int BLD, int L, int i_first,
                                              bf16* __restrict__ orow, size_t o_ld,
@@ -511,7 +615,7 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
   // alpha out, 64 key columns at a time through the staging tile Qw.
 #pragma unroll
   for (int cb = 0; cb < KMAX / 64; ++cb) {
-    if (cb * 8 < nt) {
+    if (STORE_ALPHA && cb * 8 < nt) {
       __syncwarp();
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
@@ -566,8 +670,8 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
 }
 
 // The tile (i0, h, n0 .. n0 + rt - 1) on Plan::QW * 32 threads; bias_ch is
-// the (L, L) pair bias of (complex, head).
-template <class Plan>
+// the (L, L) pair bias of (complex, head); alpha in the layout AO names.
+template <class Plan, AlphaOut AO = ALPHA_K1>
 __device__ __forceinline__ void k1_attn_tile(int i0, int h, int n0, int rt,
                                              const bf16* __restrict__ qa,
                                              const bf16* __restrict__ ka,
@@ -627,10 +731,18 @@ __device__ __forceinline__ void k1_attn_tile(int i0, int h, int n0, int rt,
       bf16* Ks = st;
       bf16* Vs = Ks + L * KLD;
       bf16* Qs = Vs + L * KLD;
-      k1_attn_warp<Plan::KMAX>(Ks, Vs, Qs + wrow * KLD, Bs + wrow * BLD, BLD, L, i_first,
-                               o + ((size_t)n * L + i_first) * HD + h * SLOT, (size_t)HD,
-                               alpha + (((size_t)c * L + i_first) * RH + (size_t)rp * H + h) * L,
-                               RH * L, lane);
+      bf16* arow = nullptr;
+      size_t a_ld = 0;
+      if constexpr (AO == ALPHA_K1) {
+        arow = alpha + (((size_t)c * L + i_first) * RH + (size_t)rp * H + h) * L;
+        a_ld = RH * L;
+      } else if constexpr (AO == ALPHA_K2) {
+        arow = alpha + (((size_t)n * H + h) * L + i_first) * L;
+        a_ld = L;
+      }
+      k1_attn_warp<Plan::KMAX, AO != ALPHA_NONE>(
+          Ks, Vs, Qs + wrow * KLD, Bs + wrow * BLD, BLD, L, i_first,
+          o + ((size_t)n * L + i_first) * HD + h * SLOT, (size_t)HD, arow, a_ld, lane);
     }
     __syncthreads();
   }

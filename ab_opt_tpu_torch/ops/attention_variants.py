@@ -17,13 +17,19 @@ be timed against each other (``utils/micro_attention.py``).
 Operands are K2's, in the JAX layout: ``qa``, ``ka``, ``vvp`` (N, L, H*64),
 ``bias`` (N // reps, H, L, L); S3 also takes ``z`` (N // reps, L, L, Cz).
 
+S1 runs K1's replica-group attention tile (``csrc/k1_tiles.cuh``, the tile
+of K1's attention launch, :func:`.gablock.gablock_attention`) with alpha in
+K2's (N, H, L, L) layout (v1) or not stored at all (v3), in blocks of
+:func:`.gablock.attention_replicas` replicas.
+
 Every wrapper refuses an input that requires a gradient (the variants have
 no backward), takes the plain version for a CPU ``qa``, and on any other
 device launches its kernel or raises; nothing falls back. The card kernels
 take bfloat16 only (the script runs them only in bf16), L a multiple of 16
-up to the cap that their shared-memory plan allows (:func:`max_length`: 128
-for S1/S3 and 192 for S2 at 12 heads). ``launches[name]`` counts the kernel
-launches of ``'v1'``, ``'v3'``, ``'v2'`` and ``'v4'``.
+up to the cap that their shared-memory plan allows (:func:`max_length`: 256
+for S1, as K1 takes it; 128 for S3 and 192 for S2 at 12 heads).
+``launches[name]`` counts the kernel launches of ``'v1'``, ``'v3'``,
+``'v2'`` and ``'v4'``.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 
 from . import build
 from . import ipa_attention as ia
+from .gablock import attention_replicas
 
 SLOT = ia.SLOT
 TILE = 16                  # query rows a block
@@ -53,8 +60,17 @@ def reset_counts():
 
 
 # ------------------------------------------------------ shared-memory plans
-# The same arithmetic as phased_smem() and head_batched_smem() in the
-# source; a card test holds the two against each other.
+# The same arithmetic as attention_tile_smem(), phased_smem() and
+# head_batched_smem() in the source; a card test and chip_smoke.py phase 11
+# hold the two against each other.
+
+TILE_MAX_L = 256           # S1: K1's attention tile takes L up to 256
+
+
+def tile_smem(L: int) -> int:
+    """Bytes of shared memory a block of S1 takes: K1's attention tile, the
+    bias rows of its query tile and its K / V / Q stages (whatever H)."""
+    return ia._attn_plan(L)[3]
 
 
 def _s_ld(L):
@@ -62,7 +78,7 @@ def _s_ld(L):
 
 
 def phased_smem(L: int, H: int) -> int:
-    """Bytes of shared memory a block of S1/S3 takes: the query rows, two
+    """Bytes of shared memory a block of S3 takes: the query rows, two
     heads' K or V, every head's f32 logits and the bf16 alphas."""
     s_floats = max(H * TILE * _s_ld(L), 2048)
     a_rows = (TILE - 1) * H + max(H, 16)
@@ -77,8 +93,11 @@ def head_batched_smem(L: int, H: int) -> int:
 
 
 def max_length(kind: str, H: int) -> int:
-    """The largest L (a multiple of 16) whose block fits in shared memory:
-    ``kind`` 'phased' (S1, S3) or 'head_batched' (S2); 0 if none does."""
+    """The largest L (a multiple of 16) that the kind's block takes:
+    ``kind`` 'tile' (S1: K1's limit), 'phased' (S3) or 'head_batched' (S2:
+    the largest whose block fits in shared memory); 0 if none does."""
+    if kind == 'tile':
+        return TILE_MAX_L
     smem = phased_smem if kind == 'phased' else head_batched_smem
     return next((L for L in range(ia.MAX_L, 0, -TILE)
                  if smem(L, H) <= SMEM_BLOCK), 0)
@@ -92,8 +111,12 @@ def _library():
     lib = ctypes.CDLL(
         build.build_sources([_SRC], build.BUILD_DIR)[str(_SRC)]['path'])
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.attention_phased.argtypes = [P] * 8 + [I] * 7 + [P]
+    lib.attention_tile.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.attention_tile.restype = I
+    lib.attention_phased.argtypes = [P] * 7 + [I] * 5 + [P]
     lib.attention_phased.restype = I
+    lib.attention_tile_smem.argtypes = [I]
+    lib.attention_tile_smem.restype = ctypes.c_size_t
     lib.attention_head_batched.argtypes = [P] * 6 + [I] * 4 + [P]
     lib.attention_head_batched.restype = I
     for fn in (lib.attention_phased_smem, lib.attention_head_batched_smem):
@@ -141,45 +164,28 @@ def _stream(a):
     return torch.cuda.current_stream(a.device).cuda_stream
 
 
-def _phased(qa, ka, vvp, bias, z, reps, store_alphas, name):
+def attention_v1(qa, ka, vvp, bias, reps: int = 1, store_alphas: bool = True):
+    """S1: (out, alphas), or ``out`` alone with ``store_alphas=False`` (v3).
+    K2's function on K1's attention tile: a block per (query tile, head,
+    replica group), logits, softmax and alpha . vvp in registers."""
     named = {'qa': qa, 'ka': ka, 'vvp': vvp, 'bias': bias}
-    Cz = 0
-    if z is not None:
-        named['z'] = z
-        H, Cz = qa.shape[-1] // SLOT, z.shape[-1]
-        # S3: one 16 x 16 tile holds every head of a query, as in K4.
-        _require(H <= ia.P2N_MAX_HEADS,
-                 f'H={H} (at most {ia.P2N_MAX_HEADS} heads)')
-        _require(Cz % 16 == 0 and 16 <= Cz <= SLOT,
-                 f'Cz={Cz} (a multiple of 16, at most {SLOT})')
-    N, L, H = _check(named, reps, 'phased')
+    _no_grad(named)
+    if qa.device.type == 'cpu':
+        out, alphas = ia.ipa_attention_fwd_reference(qa, ka, vvp, bias, reps)
+        return (out, alphas) if store_alphas else out
+    N, L, H = _check(named, reps, 'tile')
+    name = 'v1' if store_alphas else 'v3'
     lib = _library()
     with torch.cuda.device(qa.device):
         out = torch.empty_like(qa)
         alphas = (torch.empty((N, H, L, L), dtype=qa.dtype, device=qa.device)
                   if store_alphas else None)
-        p2n = (torch.empty((N, L, H, Cz), dtype=qa.dtype, device=qa.device)
-               if z is not None else None)
-        ptr = lambda a: None if a is None else a.data_ptr()
-        err = lib.attention_phased(
+        err = lib.attention_tile(
             qa.data_ptr(), ka.data_ptr(), vvp.data_ptr(), bias.data_ptr(),
-            ptr(z), out.data_ptr(), ptr(alphas), ptr(p2n), N, L, H, Cz, reps,
-            int(store_alphas), int(z is not None), _stream(qa))
+            out.data_ptr(), None if alphas is None else alphas.data_ptr(), N,
+            L, H, reps, attention_replicas(reps), _stream(qa))
     _raise_on(err, f'attention {name}')
     launches[name] += 1
-    return out, alphas, p2n
-
-
-def attention_v1(qa, ka, vvp, bias, reps: int = 1, store_alphas: bool = True):
-    """S1: (out, alphas), or ``out`` alone with ``store_alphas=False`` (v3).
-    K2's function, phase-separated in one block of 16 query rows: every
-    head's logits, one softmax pass, every head's alpha . vvp."""
-    _no_grad({'qa': qa, 'ka': ka, 'vvp': vvp, 'bias': bias})
-    if qa.device.type == 'cpu':
-        out, alphas = ia.ipa_attention_fwd_reference(qa, ka, vvp, bias, reps)
-        return (out, alphas) if store_alphas else out
-    out, alphas, _ = _phased(qa, ka, vvp, bias, None, reps, store_alphas,
-                             'v1' if store_alphas else 'v3')
     return (out, alphas) if store_alphas else out
 
 
@@ -204,10 +210,29 @@ def attention_v2(qa, ka, vvp, bias, reps: int = 1):
 
 
 def attention_v4(qa, ka, vvp, bias, z, reps: int = 1):
-    """S3: (out, p2n), K4's function: v3 plus p2n[n, i, h] = sum_j
-    alpha[n, h, i, j] z[n // reps, i, j] from the alphas in shared memory."""
-    _no_grad({'qa': qa, 'ka': ka, 'vvp': vvp, 'bias': bias, 'z': z})
+    """S3: (out, p2n), K4's function, phase-separated in one block of 16
+    query rows: every head's logits, one softmax pass, every head's alpha .
+    vvp, then p2n[n, i, h] = sum_j alpha[n, h, i, j] z[n // reps, i, j] from
+    the alphas in shared memory."""
+    named = {'qa': qa, 'ka': ka, 'vvp': vvp, 'bias': bias, 'z': z}
+    _no_grad(named)
     if qa.device.type == 'cpu':
         return ia.ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z, reps)
-    out, _, p2n = _phased(qa, ka, vvp, bias, z, reps, False, 'v4')
+    H, Cz = qa.shape[-1] // SLOT, z.shape[-1]
+    # One 16 x 16 tile holds every head of a query.
+    _require(H <= ia.P2N_MAX_HEADS,
+             f'H={H} (at most {ia.P2N_MAX_HEADS} heads)')
+    _require(Cz % 16 == 0 and 16 <= Cz <= SLOT,
+             f'Cz={Cz} (a multiple of 16, at most {SLOT})')
+    N, L, H = _check(named, reps, 'phased')
+    lib = _library()
+    with torch.cuda.device(qa.device):
+        out = torch.empty_like(qa)
+        p2n = torch.empty((N, L, H, Cz), dtype=qa.dtype, device=qa.device)
+        err = lib.attention_phased(
+            qa.data_ptr(), ka.data_ptr(), vvp.data_ptr(), bias.data_ptr(),
+            z.data_ptr(), out.data_ptr(), p2n.data_ptr(), N, L, H, Cz, reps,
+            _stream(qa))
+    _raise_on(err, 'attention v4')
+    launches['v4'] += 1
     return out, p2n

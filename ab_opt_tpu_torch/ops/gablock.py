@@ -171,6 +171,22 @@ def gablock_attention_reference(qa, ka, vv, bias, reps: int = 1):
 gablock_attention_reference.calls = 0
 
 
+def gablock_p2n_reference(alpha, z, reps: int = 1):
+    """K1's p2n in plain PyTorch: alpha (Nc, L, reps*H, L) and z (Nc, L, L,
+    Cz) -> p2n (N, L, H, Cz), p2n[c reps + r, i, h] = sum_j alpha[c, i,
+    r H + h, j] z[c, i, j], in f32, rounded to alpha's dtype."""
+    gablock_p2n_reference.calls += 1
+    Nc, L, RH, _ = alpha.shape
+    H, Cz = RH // reps, z.shape[-1]
+    p2n = torch.einsum('cimj,cijd->cimd', alpha.to(torch.float32),
+                       z.to(torch.float32))
+    return (p2n.reshape(Nc, L, reps, H, Cz).transpose(1, 2)
+            .reshape(Nc * reps, L, H, Cz).to(alpha.dtype))
+
+
+gablock_p2n_reference.calls = 0
+
+
 def gablock_gemm_reference(a, w_t, bias=None, relu=False, resid=None,
                            rowmask=None, ln=None):
     """K1's GEMM in plain PyTorch: bf16(a) (M, K) times bf16(w_t) (N, K)
@@ -334,6 +350,8 @@ def _library():
     lib.gablock_forward_variant.restype = I
     lib.gablock_attention.argtypes = [P] * 6 + [I] * 5 + [P]
     lib.gablock_attention.restype = I
+    lib.gablock_p2n.argtypes = [P] * 3 + [I] * 4 + [P]
+    lib.gablock_p2n.restype = I
     lib.gablock_gemm.argtypes = ([P, I, P] + [I] * 3 + [P, I]
                                  + [P] * 5 + [P])
     lib.gablock_gemm.restype = I
@@ -507,6 +525,42 @@ def gablock_attention(qa, ka, vv, bias, reps: int = 1):
 
 
 gablock_attention.launches = 0
+
+
+def gablock_p2n(alpha, z, reps: int = 1):
+    """K1's p2n launch alone (the layer runs it inside
+    :func:`gablock_layer`, into the feature rows): bf16 alpha (Nc, L,
+    reps*H, L), as :func:`gablock_attention` returns it, and z (Nc, L, L,
+    64) -> p2n (N, L, H, 64). A CPU ``alpha`` takes the plain version; any
+    other device launches the kernel (one count on ``gablock_p2n.launches``)
+    or raises."""
+    who = 'gablock_p2n'
+    if alpha.device.type == 'cpu':
+        return gablock_p2n_reference(alpha, z, reps)
+    _require(alpha.dim() == 4 and z.dim() == 4,
+             'alpha must be (Nc, L, reps*H, L) and z (Nc, L, L, 64)', who)
+    Nc, L, RH, _ = alpha.shape
+    _require(L % 16 == 0 and 16 <= L <= 256, f'L={L} (multiple of 16, <=256)',
+             who)
+    _require(reps >= 1 and RH % reps == 0, f'reps={reps} must divide {RH}',
+             who)
+    bf16 = torch.bfloat16
+    _check_tensors({'alpha': (alpha, (Nc, L, RH, L), bf16),
+                    'z': (z, (Nc, L, L, 64), bf16)}, alpha, who)
+    N, H = Nc * reps, RH // reps
+    lib = _library()
+    with torch.cuda.device(alpha.device):
+        p2n = torch.empty(N, L, H, 64, dtype=bf16, device=alpha.device)
+        err = lib.gablock_p2n(alpha.data_ptr(), z.data_ptr(), p2n.data_ptr(),
+                              N, L, H, reps,
+                              torch.cuda.current_stream(alpha.device)
+                              .cuda_stream)
+    _launch_error(lib, err, who)
+    gablock_p2n.launches += 1
+    return p2n
+
+
+gablock_p2n.launches = 0
 
 
 def gablock_gemm(a, w_t, bias=None, relu=False, resid=None, rowmask=None,
@@ -854,6 +908,8 @@ def reset_counts():
     gablock_layer_reference.calls = 0
     gablock_attention.launches = 0
     gablock_attention_reference.calls = 0
+    gablock_p2n.launches = 0
+    gablock_p2n_reference.calls = 0
     gablock_gemm.launches = 0
     gablock_gemm_reference.calls = 0
     fused_encoder_chained.launches = 0

@@ -25,9 +25,12 @@ The JAX layout at every public function, so tests feed both the same arrays
 tensor takes the plain version, a CUDA tensor launches the kernel (float32
 or bfloat16, L a multiple of 16 up to 512) or raises. There is no
 fallback. K4 is forward-only, as on the TPU: a tensor that requires a
-gradient raises on any device. Counters: ``.launches`` on the three
-wrappers (one per call, whatever the number of internal launches), and
-``.calls`` on the plain versions.
+gradient raises on any device. On the card K4 takes one of two routes,
+named by :func:`fwd_p2n_plan`: K1's replica-group attention tile for
+bfloat16 up to L = 256 (Cz = 64, H a multiple of 4), the CUDA-core tiles
+for float32 and for bfloat16 past L = 256; any other shape raises.
+Counters: ``.launches`` on the three wrappers (one per call, whatever the
+number of internal launches), and ``.calls`` on the plain versions.
 """
 from __future__ import annotations
 
@@ -40,8 +43,11 @@ from . import build
 
 SLOT = 64       # per-head width of qa / ka / vvp
 MAX_L = 512
-P2N_MAX_HEADS = 16     # K4: H * Cz <= 1024 outputs per query row
+P2N_MAX_HEADS = 16     # K4 on the CUDA cores: H * Cz <= 1024 a query row
 P2N_MAX_CZ = 64
+TILE_MAX_L = 256       # K4 on K1's attention tile: bf16, L <= 256, Cz = 64
+TILE_CZ = 64
+SMEM_BLOCK = 232448    # shared memory a block may have on sm_90
 _SRC = build.CSRC_DIR / 'ipa_attention.cu'
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -115,6 +121,103 @@ ipa_attention_bwd_reference.calls = 0
 ipa_attention_fwd_p2n_reference.calls = 0
 
 
+# ------------------------------------------------------------ K4's plan
+# The same arithmetic as the source's shared-memory and grid plans
+# (csrc/ipa_attention.cu, csrc/k1_tiles.cuh); phase 7 of chip_smoke.py and a
+# card test hold the two against each other.
+
+_KLD = SLOT + 8            # pitch of a staged 64-wide bf16 row
+_CC_TK, _CC_TLD = 64, SLOT + 1
+_SMEM_SM, _SMEM_RESERVED = 233472, 1024
+P2N_M = 128                # alpha rows of a p2n block
+P2N_BLOCK_ROWS = 4         # query rows of a p2n block, at most
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _cc_smem(tq: int, L: int, H: int, tsize: int) -> int:
+    return (((tq + _CC_TK) * _CC_TLD + tq * (L + 1)) * 4
+            + H * tq * L * tsize)
+
+
+def _cc_rows(L: int, H: int, tsize: int) -> int:
+    for blocks in (2, 1):
+        for tq in (32, 16, 8, 4):
+            smem = _cc_smem(tq, L, H, tsize)
+            if (smem <= SMEM_BLOCK
+                    and blocks * (smem + _SMEM_RESERVED) <= _SMEM_SM):
+                return tq
+    return 0
+
+
+def _p2n_ald(L: int) -> int:
+    return max(L, TILE_CZ) + 8
+
+
+def _attn_plan(L: int) -> tuple:
+    """K1's attention tile as S1 and K4 run it at L (AttnLean up to 128, one
+    stage so that two blocks share an SM; AttnLarge past it): (query rows,
+    warps, stages, smem)."""
+    qt, qw, ns = (128, 8, 1) if L <= 128 else (64, 4, 2)
+    return qt, qw, ns, qt * (L + 8) * 2 + ns * (2 * L + qt) * _KLD * 2
+
+
+def _p2n_stages(L: int) -> tuple:
+    """K4's p2n ring at L: (stages, bytes a stage), two stages where two
+    blocks of them fit an SM, else one."""
+    sb = (L * _KLD + P2N_M * _p2n_ald(L)) * 2
+    return (2 if 2 * (2 * sb + _SMEM_RESERVED) <= _SMEM_SM else 1), sb
+
+
+def fwd_p2n_plan(dtype, N: int, L: int, H: int, Cz: int, reps: int,
+                 sms: int = 132) -> dict:
+    """K4's launch plan on the card, a pure function of the shapes: which
+    route and, per launch, its grid, threads and shared memory. Raises
+    ValueError for a shape neither route takes.
+
+    ``'tile'`` (bf16, L a multiple of 16 up to 256, Cz = 64, H a multiple
+    of 4): K1's attention tile in blocks of ``rt`` replicas, alpha in K1's
+    layout into a workspace of ``workspace_bytes``, then p2n in blocks of
+    128 alpha rows and ``p2n_rows`` query rows (fewer where two blocks an
+    SM, ``sms`` of them, would not be covered). ``'cuda_cores'`` (float32,
+    or bf16 past L = 256): K2's f32 tiles, ``query_rows`` a block."""
+    _require(dtype in _DTYPES, f'dtype {dtype} (float32 or bfloat16)')
+    _require(L % 16 == 0 and 16 <= L <= MAX_L,
+             f'L={L} (multiple of 16, at most {MAX_L})')
+    _require(reps >= 1 and N % reps == 0, f'reps={reps} must divide N={N}')
+    Nc = N // reps
+    if dtype == torch.bfloat16 and L <= TILE_MAX_L:
+        _require(Cz == TILE_CZ, f'Cz={Cz} (the bf16 tile takes Cz={TILE_CZ} '
+                                f'up to L={TILE_MAX_L})')
+        _require(H >= 4 and H % 4 == 0,
+                 f'H={H} (the bf16 tile takes a multiple of 4 heads)')
+        rt = next(r for r in (4, 2, 1) if reps % r == 0)
+        qt, qw, _, smem = _attn_plan(L)
+        PMB = _cdiv(reps * H, P2N_M)
+        rows = max(1, min(P2N_BLOCK_ROWS, Nc * PMB * L // (2 * sms)))
+        stages, sb = _p2n_stages(L)
+        return {
+            'route': 'tile', 'rt': rt, 'query_rows': qt, 'p2n_rows': rows,
+            'p2n_stages': stages, 'workspace_bytes': Nc * L * reps * H * L * 2,
+            'launches': [
+                {'name': 'attention', 'grid': (_cdiv(L, qt), H, N // rt),
+                 'threads': 32 * qw, 'smem': smem},
+                {'name': 'p2n', 'grid': (PMB, _cdiv(L, rows), Nc),
+                 'threads': 256, 'smem': stages * sb}]}
+    _require(H <= P2N_MAX_HEADS, f'H={H} (at most {P2N_MAX_HEADS} heads)')
+    _require(Cz % 4 == 0 and 4 <= Cz <= P2N_MAX_CZ,
+             f'Cz={Cz} (a multiple of 4, at most {P2N_MAX_CZ})')
+    tsize = 4 if dtype == torch.float32 else 2
+    tq = _cc_rows(L, H, tsize)
+    _require(tq > 0, f'no CUDA-core tile fits L={L}, H={H}')
+    return {'route': 'cuda_cores', 'query_rows': tq,
+            'launches': [{'name': 'cuda_cores', 'grid': (_cdiv(L, tq), N),
+                          'threads': 256,
+                          'smem': _cc_smem(tq, L, H, tsize)}]}
+
+
 # ------------------------------------------------------------ the kernels
 
 
@@ -129,8 +232,13 @@ def _library():
     lib.ipa_attention_bwd.restype = I
     lib.ipa_attention_fwd_p2n.argtypes = [P] * 7 + [I] * 6 + [P]
     lib.ipa_attention_fwd_p2n.restype = I
-    lib.ipa_attention_fwd_p2n_tile.argtypes = [I] * 4
+    lib.ipa_attention_fwd_p2n_tile.argtypes = [I] * 3
     lib.ipa_attention_fwd_p2n_tile.restype = I
+    lib.ipa_attention_fwd_p2n_tiles.argtypes = [P] * 8 + [I] * 6 + [P]
+    lib.ipa_attention_fwd_p2n_tiles.restype = I
+    lib.ipa_attention_fwd_p2n_tile_plan.argtypes = [
+        I, ctypes.POINTER(ctypes.c_longlong)]
+    lib.ipa_attention_fwd_p2n_tile_plan.restype = I
     lib.ipa_attention_error_string.argtypes = [I]
     lib.ipa_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -222,11 +330,56 @@ def ipa_attention_bwd(qa, ka, vvp, alphas, dout, dalphas):
     return dqa, dka, dvvp, dbias
 
 
+def source_plan(L: int) -> list:
+    """The source's own plan of the tile route at L, for the check against
+    :func:`fwd_p2n_plan`: [attention smem, p2n smem, attention query rows,
+    p2n stages]."""
+    out = (ctypes.c_longlong * 4)()
+    _raise_on(_library().ipa_attention_fwd_p2n_tile_plan(L, out),
+              'ipa_attention_fwd_p2n_tile_plan')
+    return list(out)
+
+
+# The tile route's alpha workspace per (device, bytes), kept from call to
+# call (one stream, as a sampler's steps run).
+_P2N_WORKSPACE: dict = {}
+
+
+def _launch_p2n(qa, ka, vvp, bias, z, reps, plan):
+    """K4's launches on checked CUDA operands by ``plan``
+    (:func:`fwd_p2n_plan`); returns (out, p2n)."""
+    lib = _library()
+    N, L, HD = qa.shape
+    H, Cz = HD // SLOT, z.shape[-1]
+    stream = torch.cuda.current_stream(qa.device).cuda_stream
+    with torch.cuda.device(qa.device):
+        out = torch.empty_like(qa)
+        p2n = torch.empty((N, L, H, Cz), dtype=qa.dtype, device=qa.device)
+        ptr = lambda a: a.data_ptr()
+        if plan['route'] == 'cuda_cores':
+            err = lib.ipa_attention_fwd_p2n(
+                ptr(qa), ptr(ka), ptr(vvp), ptr(bias), ptr(z), ptr(out),
+                ptr(p2n), N, L, H, Cz, reps, _DTYPES[qa.dtype], stream)
+        else:
+            key = (str(qa.device), plan['workspace_bytes'])
+            alpha = _P2N_WORKSPACE.get(key)
+            if alpha is None:
+                alpha = torch.empty(plan['workspace_bytes'], dtype=torch.uint8,
+                                    device=qa.device)
+                _P2N_WORKSPACE[key] = alpha
+            err = lib.ipa_attention_fwd_p2n_tiles(
+                ptr(qa), ptr(ka), ptr(vvp), ptr(bias), ptr(z), ptr(out),
+                ptr(p2n), ptr(alpha), N, L, H, reps, plan['rt'],
+                plan['p2n_rows'], stream)
+    _raise_on(err, 'ipa_attention_fwd_p2n')
+    return out, p2n
+
+
 def ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps: int = 1):
     """K4: (out, p2n), for sampling. Raises if any input requires a
     gradient (there is no backward). A CPU ``qa`` takes the plain version;
-    any other device launches the kernel (one count on ``.launches``) or
-    raises."""
+    any other device launches the kernel of :func:`fwd_p2n_plan`'s route
+    (one count on ``.launches``) or raises."""
     named = {'qa': qa, 'ka': ka, 'vvp': vvp, 'bias': bias, 'z': z}
     for name, a in named.items():
         _require(not a.requires_grad,
@@ -236,23 +389,18 @@ def ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps: int = 1):
         return ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z, reps)
     _require(qa.dim() == 3 and z.dim() == 4,
              'qa must be (N, L, H*64) and z (N // reps, L, L, Cz)')
-    H, Cz = qa.shape[-1] // SLOT, z.shape[-1]
-    _require(H <= P2N_MAX_HEADS, f'H={H} (at most {P2N_MAX_HEADS} heads)')
-    _require(Cz % 4 == 0 and 4 <= Cz <= P2N_MAX_CZ,
-             f'Cz={Cz} (a multiple of 4, at most {P2N_MAX_CZ})')
-    N, L, H = _check(named, reps)
-    lib = _library()
-    with torch.cuda.device(qa.device):
-        out = torch.empty_like(qa)
-        p2n = torch.empty((N, L, H, Cz), dtype=qa.dtype, device=qa.device)
-        err = lib.ipa_attention_fwd_p2n(
-            qa.data_ptr(), ka.data_ptr(), vvp.data_ptr(), bias.data_ptr(),
-            z.data_ptr(), out.data_ptr(), p2n.data_ptr(), N, L, H, Cz, reps,
-            _DTYPES[qa.dtype],
-            torch.cuda.current_stream(qa.device).cuda_stream)
-    _raise_on(err, 'ipa_attention_fwd_p2n')
+    N, L, HD = qa.shape
+    plan = fwd_p2n_plan(qa.dtype, N, L, HD // SLOT, z.shape[-1], reps,
+                        _sms(qa.device) if qa.is_cuda else 132)
+    _check(named, reps)
+    got = _launch_p2n(qa, ka, vvp, bias, z, reps, plan)
     ipa_attention_fwd_p2n.launches += 1
-    return out, p2n
+    return got
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 ipa_attention_fwd.launches = 0

@@ -6,8 +6,9 @@ random operands) it prints ms per call, from CUDA events around ``iters``
 calls after one warm-up, of
 
 * v0, K2 (``ipa_attention_fwd``: per head, alphas out);
-* v1 (phase-separated, alphas out), v2 (one warp a head, alphas out), v3
-  (v1 without the alphas) and v4 (v3 plus p2n in the kernel);
+* v1 (K1's attention tile, alphas out in K2's layout), v2 (one warp a
+  head, alphas out), v3 (v1 without the alphas) and v4 (phase-separated,
+  p2n in the kernel);
 * K4 (``ipa_attention_fwd_p2n``), the production kernel of v4's function;
 * the p2n einsum over K2's alphas (``ipa_attention.p2n_aggregate``, the
   script's "XLA p2n" line);
@@ -100,10 +101,10 @@ def time_variants(qa, ka, vvp, bias, z, reps, iters=ITERS):
 
 LABELS = {
     'v0': 'v0 K2 (per-head, alphas out)',
-    'v1': 'v1 phase-separated (alphas out)',
+    'v1': 'v1 K1 tile (alphas out)',
     'v2': 'v2 heads batched (alphas out)',
-    'v3': 'v3 v1, no alphas store',
-    'v4': 'v4 v3 + in-kernel p2n',
+    'v3': 'v3 K1 tile, no alphas store',
+    'v4': 'v4 phase-separated + in-kernel p2n',
     'k4': 'K4 (ipa_attention_fwd_p2n)',
     'p2n_einsum': 'p2n einsum (alphas read from HBM)',
     'sdpa': 'scaled_dot_product_attention (v3 out)'}

@@ -6,7 +6,8 @@ Phases, each fatal on failure:
   2. build: compile every kernel source in ab_opt_tpu_torch/csrc (the
      GABlock kernel K1, the IPA attention kernels K2/K3/K4, the chained
      encoder kernel K5, the attention variants S1-S3; S4 lives in K1's
-     source), one nvcc per source, all started together;
+     source; K1's tiles, in csrc/k1_tiles.cuh, also run K5, K4 and S1), one
+     nvcc per source, all started together;
   3. K1 vs plain: the GABlock kernel against its plain PyTorch version
      at the sampler's widths (F=128, Cz=64, H=12), bf16, atol/rtol 0.05
      on valid rows, cases (Nc=1, reps=32), (Nc=2, reps=4, 8 padded rows)
@@ -44,16 +45,26 @@ Phases, each fatal on failure:
      with a non-finite loss, with exactly 60 K2 and 60 K3 launches (6 a
      step) and no plain call; then the checkpoint it saved is resumed by
      a fresh Trainer, which takes one more finite step;
-  7. K4 vs plain: the attention forward with in-kernel pair aggregation
-     (out, p2n) against its plain version at (N=256, reps=256, L=128, bf16:
-     each tensor within 1e-2 of |plain| plus 1e-3 of its largest value), at
-     (N=4, reps=2, L=128, 5 padded key columns, f32) and (N=3, reps=3,
-     L=48, f32), both at atol/rtol 1e-3; times of both at the first case;
+  7. K4 vs plain: the wrapper's launch plan against the source's (the
+     tile route at L=16..256, the CUDA-core route to L=512); the attention
+     forward with the pair aggregation (out, p2n) against its plain version
+     at P2N_CASES: bf16 on K1's attention tile at (N=256, reps=256, L=128),
+     L=144 (a ragged query tile), L=256 (reps 2), reps 3 (blocks of one
+     replica) and reps 4 (L=48), padded key columns, each tensor within
+     1e-2 of |plain| plus 1e-3 of its largest value, o bitwise equal to
+     K1's attention launch and p2n to K1's p2n launch on the same operands;
+     f32 on the CUDA cores at (N=4, reps=2, L=128) and (N=3, reps=3, L=48),
+     atol/rtol 1e-3; every case launched twice, bitwise equal, its route
+     and launches printed; then at the first case K4 against K1's two
+     launches (the same composition) and S3 (v4, the earlier design of K4's
+     function), medians of 4 order-alternated rounds, the plain time and
+     the bound;
   8. the rest of BatchedSampler, on phase 5's model and complex: one
      denoiser evaluation of the ipa_impl='pallas' model (the eager encoder
      over K4) against the same evaluation through K4's plain version, then
      four requests: ipa_impl='pallas' at fan-out 256 (exactly 100 x 6 K4
-     launches, no K1 launch), opt_step=64 at fan-out 16 (64 x 6 K1
+     launches, no K1 launch; K4's share of the request priced at phase 7's
+     time), opt_step=64 at fan-out 16 (64 x 6 K1
      launches), stride=5 at fan-out 256 (20 x 6 K1 launches) and
      sample_structure=False at fan-out 32 (100 x 6 K1 launches, the native
      frames and CA positions unchanged); each with finite outputs, the
@@ -75,14 +86,17 @@ Phases, each fatal on failure:
      list and workspace), each with exactly 100 K5 launches, no K1 launch
      and no plain call, finite outputs and the context residues unchanged;
      samples/s beside phase 5's K1-route numbers;
- 11. the attention variants (S1 as v1 and v3, S2 as v2, S3 as v4) vs their
-     plain versions (K2's and K4's) at (N=256, reps=256, L=128) and (N=3,
-     reps=3, L=48, 5 padded key columns), bf16, each tensor within K2's
-     bf16 gate; then the variants' own path, the timing harness
-     (utils/micro_attention.py) at the first case with the counts zeroed
-     before it: exactly one warm-up and VARIANT_ITERS timed launches of each
-     variant; the plain versions' times, the bounds, and the library
-     yardstick for v3 (scaled_dot_product_attention);
+ 11. the attention variants (S1 as v1 and v3 on K1's attention tile, S2 as
+     v2, S3 as v4) vs their plain versions (K2's and K4's) at (N=256,
+     reps=256, L=128) and (N=3, reps=3, L=48, 5 padded key columns), and S1
+     also at L=256 (N=8, reps=4, 3 padded key columns), bf16, each tensor
+     within K2's bf16 gate, v3's o bitwise equal to v1's; then the variants'
+     own path, the timing harness (utils/micro_attention.py) at the first
+     case with the counts zeroed before it: exactly one warm-up and
+     VARIANT_ITERS timed launches of each variant; the plain versions'
+     times, the bounds, and the library yardstick for v3
+     (scaled_dot_product_attention); then v3 and v1 against K1's attention
+     launch and SDPA on the same operands (medians of 4 alternated rounds);
  12. the fused-GABlock variants (S4, in csrc/gablock.cu): v3 vs K1's
      plain version (and vs K1, printed) and each ablation mask (each flag
      with a counterpart, the floor) vs the plain version with the same
@@ -122,6 +136,17 @@ ATTN_BF16_ATOL_FRAC = 1e-3
 ATTN_F32_TOL = 1e-3
 TRAIN_BATCH = 16
 P2N_FANOUT = 256          # K4's timed case and the ipa_impl='pallas' request
+# K4 vs plain: (N, L, reps, dtype name, padded key columns). The first is
+# the sampler's shape and is timed (P2N_ROUNDS alternated rounds of
+# P2N_ITERS calls); then bf16 on the tile route at a ragged query tile
+# (L=144), L=256 (reps 2), reps 3 (blocks of one replica) and reps 4, and
+# float32 on the CUDA cores.
+P2N_CASES = ((P2N_FANOUT, L, P2N_FANOUT, 'bfloat16', 0),
+             (8, 144, 4, 'bfloat16', 5), (4, 256, 2, 'bfloat16', 3),
+             (6, L, 3, 'bfloat16', 5), (8, 48, 4, 'bfloat16', 5),
+             (4, L, 2, 'float32', 5), (3, 48, 3, 'float32', 0))
+P2N_ROUNDS = 4
+P2N_ITERS = 20
 TIMED_STEPS = 10
 LAYERS = 6                # the encoder depth of DiffAbConfig
 # The chained requests: each fan-out twice, the first with K5's per-shape
@@ -143,6 +168,11 @@ K1_ABL_RATIO = 0.53
 # hides.
 VARIANT_CASES = ((256, 256, L, 0), (3, 3, 48, 5))
 VARIANT_ITERS = 20
+# S1 alone, on K1's attention tile: the cap L=256 (4 replicas a block, 3
+# padded key columns). The first VARIANT_CASES shape also times v3 and v1
+# against K1's attention launch and SDPA (S1_ROUNDS alternated rounds).
+S1_CASES = ((8, 4, 256, 3),)
+S1_ROUNDS = 4
 # S4: (Nc, reps, rt, padded rows); the first is the script's point and is
 # timed, the second masks padded rows. Both hold v3 and every ablation mask.
 FUSED_CASES = ((1, 256, 4, 0), (2, 4, 2, 8))
@@ -731,71 +761,145 @@ def phase_train(device):
     return launches
 
 
-def phase_p2n(device):
-    """K4 vs its plain version, then their times at the sampler's fan-out
-    (see the module docstring, phase 7). Returns max_abs_err, ms,
-    plain_ms, bound_ms and bound_by."""
+def _rounds(calls, rounds, iters):
+    """Median ms per call of each entry of ``calls`` ({name: fn}) over
+    ``rounds`` rounds of ``iters`` calls, every entry warmed first and the
+    order reversed every other round."""
+    import statistics
+    for fn in calls.values():
+        fn()
+    times = {k: [] for k in calls}
+    order = list(calls)
+    for r in range(rounds):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            times[k].append(_cuda_ms(calls[k], iters))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _k4_gate(a, b, dtype):
+    """K4's gates: bf16 within ATTN_BF16_RTOL of |plain| plus
+    ATTN_BF16_ATOL_FRAC of the plain tensor's largest value, f32 within
+    ATTN_F32_TOL. Returns (max_abs_err, atol, ok)."""
     import torch
+    if dtype == torch.bfloat16:
+        return _bf16_gate(a, b)
+    b = b.float()
+    err = (a.float() - b).abs()
+    ok = bool(torch.isfinite(a).all()) and bool(
+        (err <= ATTN_F32_TOL + ATTN_F32_TOL * b.abs()).all())
+    return float(err.max()), ATTN_F32_TOL, ok
+
+
+def phase_p2n(device):
+    """K4 vs its plain version, K1's launches and its earlier design, then
+    the times at the sampler's fan-out (see the module docstring, phase 7).
+    Returns max_abs_err, ms, plain_ms, bound_ms and bound_by."""
+    import torch
+    from ab_opt_tpu_torch.ops import attention_variants as av
+    from ab_opt_tpu_torch.ops import gablock as gb
     from ab_opt_tpu_torch.ops import ipa_attention as ia
     torch.set_grad_enabled(False)
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
     res = {'max_abs_err': 0.0}
-    cases = ((P2N_FANOUT, L, P2N_FANOUT, torch.bfloat16, 0),
-             (4, L, 2, torch.float32, 5),
-             (3, 48, 3, torch.float32, 0))
-    for N, Ln, reps, dtype, n_pad in cases:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for Ln in range(16, 257, 16):
+        plan = ia.fwd_p2n_plan(bf16, 8, Ln, 12, 64, 4)
+        want = ([launch['smem'] for launch in plan['launches']]
+                + [plan['query_rows'], plan['p2n_stages']])
+        if ia.source_plan(Ln) != want:
+            raise SystemExit(f'K4: the wrapper plans L={Ln} unlike the source '
+                             f'({want} against {ia.source_plan(Ln)})')
+    lib = ia._library()
+    for Ln in range(16, ia.MAX_L + 1, 16):
+        for dname, code in (('float32', 0), ('bfloat16', 1)):
+            if Ln <= ia.TILE_MAX_L and code:
+                continue
+            plan = ia.fwd_p2n_plan(getattr(torch, dname), 8, Ln, 12, 64, 4)
+            if lib.ipa_attention_fwd_p2n_tile(Ln, 12, code) != plan[
+                    'query_rows']:
+                raise SystemExit(f'K4: the wrapper plans the CUDA-core '
+                                 f'route unlike the source at L={Ln}, {dname}')
+    print('K4 plan: the wrapper\'s plan is the source\'s at L=16..256 (tile '
+          'route) and L=16..512 (CUDA-core route)')
+    timed = None
+    for N, Ln, reps, dname, n_pad in P2N_CASES:
+        dtype = getattr(torch, dname)
         qa, ka, vvp, bias, _, _ = _attention_case(
             N, Ln, reps, dtype, n_pad, seed=N + Ln + 1, device=device)
         g = torch.Generator(device=device).manual_seed(N + Ln)
         z = torch.randn(N // reps, Ln, Ln, 64, generator=g,
                         device=device).to(dtype).contiguous()
-        kern = lambda: ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps)
-        plain = lambda: ia.ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias,
-                                                           z, reps)
-        got = kern()
+        H = bias.shape[1]
+        plan = ia.fwd_p2n_plan(dtype, N, Ln, H, 64, reps, sms)
+        got = ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps)
+        again = ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps)
         torch.cuda.synchronize()
-        ref = plain()
+        ref = ia.ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z, reps)
         errs = []
         for name, a, b in zip(('out', 'p2n'), got, ref):
-            b = b.float()
-            err = (a.float() - b).abs()
-            if dtype == torch.bfloat16:
-                atol = ATTN_BF16_ATOL_FRAC * float(b.abs().max())
-                limit = atol + ATTN_BF16_RTOL * b.abs()
-            else:
-                atol = ATTN_F32_TOL
-                limit = ATTN_F32_TOL + ATTN_F32_TOL * b.abs()
-            ok = bool(torch.isfinite(a).all()) and bool((err <= limit).all())
-            errs.append(f'{name} {float(err.max()):.6f} (atol {atol:.2e})')
-            res['max_abs_err'] = max(res['max_abs_err'], float(err.max()))
+            err, atol, ok = _k4_gate(a, b, dtype)
+            errs.append(f'{name} {err:.6f} (atol {atol:.2e})')
+            res['max_abs_err'] = max(res['max_abs_err'], err)
             if not ok:
                 raise SystemExit(f'ipa_attention_fwd_p2n {name} disagrees with '
                                  f'its plain version (N={N}, L={Ln}, {dtype})')
-        tile = ia._library().ipa_attention_fwd_p2n_tile(
-            Ln, bias.shape[1], z.shape[-1], 0 if dtype == torch.float32 else 1)
-        tiles = (f'{-tile} query rows a block, tensor cores' if tile < 0
-                 else f'{tile} query rows a block, CUDA cores')
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        route = plan['route'] + (
+            f' (rt {plan["rt"]}, p2n {plan["p2n_rows"]} query rows a block)'
+            if plan['route'] == 'tile'
+            else f' ({plan["query_rows"]} query rows a block)')
+        grids = ', '.join(f'{la["name"]} grid {la["grid"]} x {la["threads"]}'
+                          f', {la["smem"]} B' for la in plan['launches'])
         print(f'K4 vs plain (N={N}, reps={reps}, L={Ln}, padded key columns='
-              f'{n_pad}, {str(dtype)[6:]}, {tiles}): '
-              f'max_abs_err ' + ', '.join(errs))
-        if dtype != torch.bfloat16:
+              f'{n_pad}, {str(dtype)[6:]}, route {route}: {grids}): '
+              f'max_abs_err ' + ', '.join(errs) + f'; two launches bitwise '
+              f'equal: {same}')
+        if not same:
+            raise SystemExit(f'two K4 launches differ (N={N}, L={Ln})')
+        if plan['route'] != 'tile':
             continue
-        H, Cz = bias.shape[1], z.shape[-1]
-        bound = _bound(2 * N * H * Ln * Ln * (64 + 64 + Cz),
-                       _nbytes(qa, ka, vvp, bias, z, *got))
-        k_ms = _cuda_ms(kern, 20)
-        p_ms = _cuda_ms(plain, 5)
-        k_ms2 = _cuda_ms(kern, 20)
-        res.update(ms=min(k_ms, k_ms2), plain_ms=p_ms, bound_ms=bound[0],
-                   bound_by=bound[1])
-        print(f'K4 ms at N={N}, reps={reps}, L={Ln}, H={H}, Cz={Cz}, bf16: '
-              f'kernel {k_ms:.4f} / {k_ms2:.4f}, plain {p_ms:.4f}, bound '
-              f'{bound[0]:.4f} ({bound[1]})')
+        # The tile route runs K1's attention tile and K5's p2n: o is K1's
+        # attention launch's bit for bit, p2n K1's p2n launch's on K1's
+        # alpha.
+        o_k1, alpha_k1 = gb.gablock_attention(qa, ka, vvp, bias, reps)
+        p2n_k1 = gb.gablock_p2n(alpha_k1, z, reps)
+        torch.cuda.synchronize()
+        o_eq, p_eq = torch.equal(got[0], o_k1), torch.equal(got[1], p2n_k1)
+        print(f'  o bitwise equal to K1\'s attention launch: {o_eq}; p2n to '
+              f'K1\'s p2n launch: {p_eq}')
+        if not (o_eq and p_eq):
+            raise SystemExit(f'K4 disagrees with K1\'s launches (N={N}, '
+                             f'L={Ln}, reps={reps})')
+        if timed is None:
+            timed = (N, Ln, reps, H, qa, ka, vvp, bias, z, got)
+
+    N, Ln, reps, H, qa, ka, vvp, bias, z, got = timed
+    ms = _rounds({
+        'K4': lambda: ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps),
+        'K1 attention + K1 p2n': lambda: gb.gablock_p2n(
+            gb.gablock_attention(qa, ka, vvp, bias, reps)[1], z, reps),
+        'S3 (v4)': lambda: av.attention_v4(qa, ka, vvp, bias, z, reps)},
+        P2N_ROUNDS, P2N_ITERS)
+    p_ms = _cuda_ms(lambda: ia.ipa_attention_fwd_p2n_reference(
+        qa, ka, vvp, bias, z, reps), 5)
+    bound = _bound(2 * N * H * Ln * Ln * (64 + 64 + 64),
+                   _nbytes(qa, ka, vvp, bias, z, *got))
+    res.update(ms=ms['K4'], plain_ms=p_ms, bound_ms=bound[0],
+               bound_by=bound[1])
+    print(f'K4 ms at N={N}, reps={reps}, L={Ln}, H={H}, Cz=64, bf16 '
+          f'(medians of {P2N_ROUNDS} alternated rounds of {P2N_ITERS}): '
+          + ', '.join(f'{k} {v:.4f}' for k, v in ms.items())
+          + f'; plain {p_ms:.4f}, bound {bound[0]:.4f} ({bound[1]})')
+    print(f'phase 7: {time.perf_counter() - t0:.2f} s')
     return res
 
 
-def phase_paths(model, batch):
-    """The rest of BatchedSampler (see the module docstring, phase 8).
-    Returns K4's launches in the four requests."""
+def phase_paths(model, batch, k4_ms):
+    """The rest of BatchedSampler (see the module docstring, phase 8);
+    ``k4_ms``, K4's time at the request's shape (phase 7), prices K4's share
+    of the ``'pallas'`` request. Returns K4's launches in the four
+    requests."""
     import numpy as np
     import torch
     from ab_opt_tpu_torch.geometry import (construct_3d_basis,
@@ -866,10 +970,14 @@ def phase_paths(model, batch):
             frozen_ok = d_p <= 1e-3 and d_v <= 1e-5
             frozen = (f', structure frozen: max |d p|={d_p:.2e} A, '
                       f'max |d v|={d_v:.2e}')
+        share = (f', K4 {k4} x {k4_ms:.4f} ms = {k4 * k4_ms / 1e3:.3f} s '
+                 f'({100 * k4 * k4_ms / 1e3 / dt:.1f}% of the request)'
+                 if k4 else '')
         print(f'request {i + 1} ({name}): fan-out {reps}: {dt:.3f} s, '
               f'{reps / dt:.3f} samples/s, K1 launches {k1}, K4 launches '
               f'{k4}, plain calls {plain}, finite={finite}, '
-              f'shapes_ok={shapes_ok}, context_unchanged={ctx_same}{frozen}')
+              f'shapes_ok={shapes_ok}, context_unchanged={ctx_same}{frozen}'
+              f'{share}')
         if not (finite and shapes_ok and ctx_same and frozen_ok
                 and (k1, k4, plain) == (want_k1, want_k4, 0)):
             raise SystemExit(f'request {i + 1} ({name}) failed its checks')
@@ -1043,6 +1151,7 @@ def phase_variants(device):
     library_ms."""
     import torch
     from ab_opt_tpu_torch.ops import attention_variants as av
+    from ab_opt_tpu_torch.ops import gablock as gb
     from ab_opt_tpu_torch.ops import ipa_attention as ia
     from ab_opt_tpu_torch.utils import micro_attention as mh
     torch.set_grad_enabled(False)
@@ -1060,9 +1169,17 @@ def phase_variants(device):
         if (c_smem(L, H), c_smem(cap, H)) != (py_smem(L, H), py_smem(cap, H)):
             raise SystemExit(f'the {kind} wrapper plans shared memory unlike '
                              'the kernel')
+    for Ln in (16, 48, 128, 144, 256):
+        if lib.attention_tile_smem(Ln) != av.tile_smem(Ln):
+            raise SystemExit('the S1 wrapper plans shared memory unlike the '
+                             'kernel')
+    print(f'S1 block (K1\'s attention tile) at L={L}: '
+          f'{lib.attention_tile_smem(L)} bytes; cap L=256 '
+          f'({lib.attention_tile_smem(256)} bytes)')
     res = {k: {'max_abs_err': 0.0} for k in ('v1', 'v3', 'v2', 'v4')}
     timed = None
-    for N, reps, Ln, n_pad in VARIANT_CASES:
+    for N, reps, Ln, n_pad in VARIANT_CASES + S1_CASES:
+        s1_only = (N, reps, Ln, n_pad) in S1_CASES
         ops = mh.make_operands(N, reps, Ln, H, Cz, device, seed=N + Ln + 2,
                                n_pad=n_pad)
         qa, ka, vvp, bias, z = ops
@@ -1081,6 +1198,8 @@ def phase_variants(device):
              ('out', 'p2n')))
         outputs = {}
         for name, kern, plain, names in cases:
+            if s1_only and name not in ('v1', 'v3'):
+                continue
             got = kern()
             torch.cuda.synchronize()
             errs = []
@@ -1095,6 +1214,10 @@ def phase_variants(device):
             print(f'{name} vs plain (N={N}, reps={reps}, L={Ln}, padded key '
                   f'columns={n_pad}, bf16, rtol {ATTN_BF16_RTOL}): '
                   f'max_abs_err ' + ', '.join(errs))
+        # v3 is v1 with the alpha stores compiled away: the same o.
+        if not torch.equal(outputs['v3'][0], outputs['v1'][0]):
+            raise SystemExit(f'v3 o differs from v1 o (N={N}, L={Ln})')
+        print(f'v3 o bitwise equal to v1 o (N={N}, reps={reps}, L={Ln})')
         if timed is None:
             timed = (N, reps, Ln, ops, outputs, k2, k4)
 
@@ -1130,6 +1253,20 @@ def phase_variants(device):
     if any(n != VARIANT_ITERS + 1 for n in counts.values()):
         raise SystemExit(f'the harness launched the variants {counts} times, '
                          f'not {VARIANT_ITERS + 1} each')
+    # S1 on K1's tile against K1's attention launch (the same tile with
+    # alpha in K1's layout) and the library, on the same operands.
+    s1 = _rounds({
+        'v3': lambda: av.attention_v1(qa, ka, vvp, bias, reps,
+                                      store_alphas=False),
+        'v1': lambda: av.attention_v1(qa, ka, vvp, bias, reps),
+        'K1 attention': lambda: gb.gablock_attention(qa, ka, vvp, bias, reps),
+        'sdpa': sdpa}, S1_ROUNDS, VARIANT_ITERS)
+    print(f'S1 at N={N}, reps={reps}, L={Ln}, H={H} (medians of {S1_ROUNDS} '
+          f'alternated rounds of {VARIANT_ITERS}): ' + ', '.join(
+              f'{k} {v:.4f} ms' for k, v in s1.items())
+          + f'; v3 / sdpa {s1["v3"] / s1["sdpa"]:.3f}, v3 / K1 attention '
+          f'{s1["v3"] / s1["K1 attention"]:.3f}, v1 / K1 attention '
+          f'{s1["v1"] / s1["K1 attention"]:.3f}')
     print(f'phase 11: {time.perf_counter() - t0:.2f} s')
     return res
 
@@ -1241,7 +1378,7 @@ def main():
     launches, model, batch, k1_rates = phase_slice(device)
     k2, k3 = phase_train(device)
     p2n = phase_p2n(device)
-    k4 = phase_paths(model, batch)
+    k4 = phase_paths(model, batch, p2n['ms'])
     chain = phase_chain_kernel(device)
     k5 = phase_chain(model, batch, k1_rates)
     variants = phase_variants(device)

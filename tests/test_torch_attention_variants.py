@@ -8,8 +8,10 @@ against the JAX package, on the CPU:
   ``pallas_call`` interprets (the script itself is not changed). f32 at
   atol 1e-5, bf16 at atol/rtol 0.05; L 16 and 48; (Nc, reps) (2, 1) and
   (1, 3); 3 padded key columns;
+* the same at L=144 with reps 4 (a ragged query tile of K1's attention
+  tile, which S1 runs, and blocks of four replicas);
 * the wrappers: they refuse what the card kernels do not take (a dtype
-  other than bf16, L past the shared-memory cap or not a multiple of 16,
+  other than bf16, L past the kernel's cap or not a multiple of 16,
   reps not dividing N, wrong bias and z shapes, a tensor off the card, a
   tensor that requires a gradient), and CPU tensors take the plain version
   with no launch.
@@ -103,6 +105,13 @@ def test_plain_version_matches_the_script(script, variant, Nc, reps, L,
                                    err_msg=name)
 
 
+@pytest.mark.parametrize('variant', list(VARIANTS))
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_plain_version_matches_the_script_at_L144(script, variant, dtype):
+    """As above at L=144, one complex of 4 replicas."""
+    test_plain_version_matches_the_script(script, variant, 1, 4, 144, dtype)
+
+
 # ------------------------------------------------------------ the wrappers
 
 
@@ -135,10 +144,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(variant, bad, match):
 
 
 @pytest.mark.parametrize('variant,L,cap', [
-    ('v1', 144, 128), ('v3', 144, 128), ('v4', 144, 128), ('v2', 208, 192)])
+    ('v1', 272, 256), ('v3', 272, 256), ('v4', 144, 128), ('v2', 208, 192),
+    ('v1', 512, 256), ('v3', 512, 256)])
 def test_wrapper_refuses_L_past_the_cap(variant, L, cap):
-    """The shared-memory plan's cap at 12 heads: S1/S3 hold every head's
-    f32 logits (cap 128), S2 one head a warp (cap 192)."""
+    """Each kernel's cap at 12 heads: S1 runs K1's attention tile (cap 256,
+    K1's), S3 holds every head's f32 logits (cap 128), S2 one head a warp
+    (cap 192)."""
     with pytest.raises(ValueError, match=f'L={L} is past the cap L={cap}'):
         CALLS[variant](_meta(L=L), 1)
     # The cap itself passes the shape checks (and stops only at the device).
@@ -156,8 +167,14 @@ def test_p2n_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
 
 def test_shared_memory_plans():
     """The plans the caps come from, at the script's widths (219,520 bytes
-    at L=128 for S1/S3, 230,400 at L=192 for S2; a block may have
-    232,448)."""
+    at L=128 for S3, 230,400 at L=192 for S2; a block may have 232,448);
+    S1's block is K1's attention tile in one stage up to L=128 (90,112
+    bytes at L=128: two blocks an SM) and in K1's two past it (199,680 at
+    L=256), whatever H."""
+    assert (av.tile_smem(128), av.tile_smem(256)) == (90112, 199680)
+    assert 2 * (av.tile_smem(128) + 1024) <= 233472
+    assert all(av.tile_smem(L) <= av.SMEM_BLOCK for L in range(16, 257, 16))
+    assert av.max_length('tile', H) == 256
     assert av.phased_smem(128, H) == 219520
     assert av.phased_smem(144, H) > av.SMEM_BLOCK
     assert av.head_batched_smem(192, H) == 230400

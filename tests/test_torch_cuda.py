@@ -1,4 +1,4 @@
-"""The GABlock kernel (K1, its attention launch and its GEMM alone too), the
+"""The GABlock kernel (K1, its attention, p2n and GEMM launches alone too), the
 IPA attention kernels (K2, K3, K4), the chained encoder kernel (K5), the
 attention variants (S1-S3) and the fused-GABlock variants (S4)
 against their plain versions, on an NVIDIA GPU (marker
@@ -231,6 +231,74 @@ def test_p2n_kernel_matches_plain_on_card(L, Nc, reps, dtype):
                                    msg=name)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('L', [16, 48, 128, 144, 256])
+@pytest.mark.parametrize('reps', [1, 2, 3, 4, 256])
+def test_p2n_tile_matches_k1_and_plain_on_card(L, reps):
+    """K4's tile route (bf16, H=12, Cz=64, 5 padded key columns): o bitwise
+    equal to K1's attention launch on the same operands and p2n to K1's p2n
+    launch on K1's alpha (the same tiles and sums), p2n within the bf16 gate
+    (rtol 1e-2 plus 1e-3 of its largest value) of the plain version; two
+    launches bitwise equal. One count a call, no plain call."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    dev = torch.device('cuda')
+    Nc = 2 if reps < 4 else 1
+    qa, ka, vvp, bias, _, _ = _attention_case(L, Nc, reps, torch.bfloat16,
+                                              dev, seed=L + reps)
+    g = torch.Generator().manual_seed(L + 7)
+    z = torch.randn(Nc, L, L, 64, generator=g).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        o_k1, alpha_k1 = gb.gablock_attention(qa, ka, vvp, bias, reps)
+        p2n_k1 = gb.gablock_p2n(alpha_k1, z, reps)
+        ref = ia.ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z, reps)
+        assert ia.fwd_p2n_plan(torch.bfloat16, Nc * reps, L, 12, 64,
+                               reps)['route'] == 'tile'
+        ia.reset_counts()
+        got = ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps)
+        again = ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps)
+        torch.cuda.synchronize()
+    assert ia.ipa_attention_fwd_p2n.launches == 2
+    assert ia.ipa_attention_fwd_p2n_reference.calls == 0
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert torch.equal(got[0], o_k1) and torch.equal(got[1], p2n_k1)
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        b = b.float()
+        torch.testing.assert_close(a.float(), b, rtol=1e-2,
+                                   atol=1e-3 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_p2n_plan_is_the_sources_on_card():
+    """The wrapper's plan is the source's at every L (the tile route's
+    shared memory, query rows and stages; the CUDA-core route's query rows),
+    and a shape no route takes raises on CUDA tensors with no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    for L in range(16, 257, 16):
+        plan = ia.fwd_p2n_plan(torch.bfloat16, 8, L, 12, 64, 4)
+        want = ([launch['smem'] for launch in plan['launches']]
+                + [plan['query_rows'], plan['p2n_stages']])
+        assert ia.source_plan(L) == want, L
+    lib = ia._library()
+    for L in range(16, ia.MAX_L + 1, 16):
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            if not (L <= ia.TILE_MAX_L and code):
+                plan = ia.fwd_p2n_plan(dtype, 8, L, 12, 64, 4)
+                assert (lib.ipa_attention_fwd_p2n_tile(L, 12, code)
+                        == plan['query_rows']), (L, dtype)
+    dev = torch.device('cuda')
+    qa, ka, vvp, bias, _, _ = _attention_case(128, 1, 2, torch.bfloat16, dev)
+    ia.reset_counts()
+    with pytest.raises(ValueError, match='Cz=16'):
+        ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, torch.zeros(
+            1, 128, 128, 16, dtype=torch.bfloat16, device=dev), 2)
+    assert ia.ipa_attention_fwd_p2n.launches == 0
+
+
 # K5's card cases: L 16, 48, 128 and 256 (the attention tile's 128 rows
 # below, at and past L), reps 1, 2, 3, 4, 32 and 256 (attention groups of 1,
 # 2 and 4 replicas; one to 24 alpha-row blocks of a p2n item), padded rows,
@@ -323,13 +391,18 @@ VARIANT_CASES = [(v, L, Nc, reps) for v in ('v1', 'v3', 'v2', 'v4')
                  for L, Nc, reps in ((16, 2, 1), (48, 1, 3), (128, 2, 1),
                                      (128, 1, 3))]
 VARIANT_CASES += [('v2', 192, 1, 3)]         # S2's cap at 12 heads
+# S1 on K1's attention tile: a ragged query tile (L=144, 64-row tiles) and
+# the cap, in blocks of 1, 2 and 4 replicas.
+VARIANT_CASES += [(v, L, Nc, reps) for v in ('v1', 'v3')
+                  for L, Nc, reps in ((144, 1, 3), (256, 1, 4), (256, 2, 2))]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('variant,L,Nc,reps', VARIANT_CASES)
 def test_attention_variants_match_plain_on_card(variant, L, Nc, reps):
     """S1 (v1, v3), S2 (v2) and S3 (v4) against their plain versions (K2's
-    and K4's), bf16, 5 padded key columns, L up to each kernel's cap: each
+    and K4's), bf16, 5 padded key columns, L up to each kernel's cap (S1
+    256, S2 192, S3 128): each
     tensor within rtol 1e-2 and atol 1e-3 of its largest value (both
     sides compute in f32 and round alpha and each output once). The call
     launches its kernel once and reaches no plain version."""
@@ -369,14 +442,16 @@ def test_attention_variants_match_plain_on_card(variant, L, Nc, reps):
 @pytest.mark.cuda
 def test_attention_variants_refuse_on_card():
     """float32 and an L past the cap raise on CUDA tensors and launch
-    nothing; the wrapper's shared-memory plan is the kernel's."""
+    nothing (S1 past 256, S2 past 192, S3 past 128 at 12 heads); the
+    wrapper's shared-memory plan is the kernel's."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
     from ab_opt_tpu_torch.ops import attention_variants as av
     from ab_opt_tpu_torch.utils.micro_attention import make_operands
     dev = torch.device('cuda')
     lib = av._library()
-    for L in (16, 48, 128, 144, 192, 208):
+    for L in (16, 48, 128, 144, 192, 208, 256):
+        assert lib.attention_tile_smem(L) == av.tile_smem(L)
         assert lib.attention_phased_smem(L, 12) == av.phased_smem(L, 12)
         assert (lib.attention_head_batched_smem(L, 12)
                 == av.head_batched_smem(L, 12))
@@ -390,11 +465,14 @@ def test_attention_variants_refuse_on_card():
     with pytest.raises(ValueError, match='bfloat16 only'):
         av.attention_v4(*f32)
     qa, ka, vvp, bias, z = make_operands(1, 1, 208, 12, 64, dev)
-    for call in (lambda: av.attention_v1(qa, ka, vvp, bias),
-                 lambda: av.attention_v2(qa, ka, vvp, bias),
+    for call in (lambda: av.attention_v2(qa, ka, vvp, bias),
                  lambda: av.attention_v4(qa, ka, vvp, bias, z)):
         with pytest.raises(ValueError, match='past the cap'):
             call()
+    qa, ka, vvp, bias, z = make_operands(1, 1, 272, 12, 64, dev)
+    for store in (True, False):
+        with pytest.raises(ValueError, match='past the cap L=256'):
+            av.attention_v1(qa, ka, vvp, bias, store_alphas=store)
     assert av.launches == {'v1': 0, 'v3': 0, 'v2': 0, 'v4': 0}
 
 

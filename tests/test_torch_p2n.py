@@ -7,6 +7,12 @@ form of the GABlock that runs it, against the JAX package on the CPU:
   in float32, within the bf16 kernel budget (atol/rtol 0.05) in bfloat16;
 * ``GABlock(fuse_p2n=True)`` against the JAX ``GABlock(use_pallas=True)``
   called with ``fuse_p2n=True`` (K4 in interpret mode), float32, at 1e-4;
+* the same at L=144 with reps 4 (a ragged query tile, blocks of four
+  replicas);
+* the launch plan (``fwd_p2n_plan``, a pure function of the shapes): the
+  route by dtype, L, H and Cz, and at L 16..256 x H 4, 8, 12, 16 x reps 1,
+  2, 3, 4, 256 every (trajectory, query row, head) covered by exactly one
+  block of each launch, in at most 232,448 bytes of shared memory;
 * the wrapper: it raises on shapes, dtypes and widths the kernel does not
   take and on any input that requires a gradient, and CPU tensors take the
   plain version.
@@ -56,6 +62,11 @@ def test_p2n_reference_matches_jax(Nc, reps, L, dtype):
                                    np.asarray(b.astype(jnp.float32)),
                                    atol=tol, rtol=0 if tol < 1e-3 else tol,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_p2n_reference_matches_jax_at_L144(dtype):
+    test_p2n_reference_matches_jax(1, 4, 144, dtype)
 
 
 @pytest.mark.parametrize('Nc,reps', [(2, 1), (1, 2)])
@@ -127,3 +138,77 @@ def test_cpu_tensors_take_the_plain_version():
     torch.testing.assert_close(out, ref_out, atol=0, rtol=0)
     torch.testing.assert_close(p2n, ia.p2n_aggregate(alphas, args[4], 2),
                                atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------ the plan
+
+
+@pytest.mark.parametrize('dtype,L,heads,Cz,route', [
+    (torch.bfloat16, 128, 12, 64, 'tile'), (torch.bfloat16, 16, 4, 64, 'tile'),
+    (torch.bfloat16, 256, 20, 64, 'tile'),
+    (torch.bfloat16, 272, 12, 64, 'cuda_cores'),
+    (torch.bfloat16, 512, 12, 16, 'cuda_cores'),
+    (torch.float32, 128, 12, 64, 'cuda_cores'),
+    (torch.float32, 48, 12, 16, 'cuda_cores')])
+def test_plan_route(dtype, L, heads, Cz, route):
+    """bf16 up to L=256 with Cz=64 and a multiple of 4 heads takes K1's
+    attention tile; float32 and bf16 past L=256 the CUDA-core tiles."""
+    plan = ia.fwd_p2n_plan(dtype, 8, L, heads, Cz, 4)
+    assert plan['route'] == route
+    assert all(launch['smem'] <= ia.SMEM_BLOCK for launch in plan['launches'])
+
+
+@pytest.mark.parametrize('dtype,L,heads,Cz,match', [
+    (torch.bfloat16, 128, 12, 16, 'Cz=16'), (torch.bfloat16, 256, 6, 64, 'H=6'),
+    (torch.float32, 128, 20, 64, 'H=20'), (torch.float16, 128, 12, 64, 'dtype'),
+    (torch.bfloat16, 136, 12, 64, 'L=136'), (torch.float32, 528, 12, 64,
+                                             'L=528')])
+def test_plan_refuses_what_no_route_takes(dtype, L, heads, Cz, match):
+    with pytest.raises(ValueError, match=match):
+        ia.fwd_p2n_plan(dtype, 8, L, heads, Cz, 4)
+
+
+def _cover(length, starts, width):
+    """How often each of ``length`` indices is covered by blocks starting at
+    ``starts``, each ``width`` wide (clipped at the end)."""
+    count = np.zeros(length + width, dtype=np.int64)
+    for s0 in starts:
+        count[s0:s0 + width] += 1
+    return count[:length]
+
+
+@pytest.mark.parametrize('reps', [1, 2, 3, 4, 256])
+@pytest.mark.parametrize('heads', [4, 8, 12, 16])
+def test_plan_covers_every_row_once(heads, reps):
+    """At every L 16..256 (step 16), each launch of the tile route (the
+    attention, then p2n) covers every (trajectory, query row, head) exactly
+    once, no block is empty, each takes at most 232,448 bytes of shared
+    memory, and the replica groups divide reps."""
+    Nc = 2 if reps < 256 else 1
+    N = Nc * reps
+    for L in range(16, 257, 16):
+        plan = ia.fwd_p2n_plan(torch.bfloat16, N, L, heads, 64, reps)
+        assert plan['route'] == 'tile' and reps % plan['rt'] == 0
+        assert plan['workspace_bytes'] == N * heads * L * L * 2
+        rt, qt, rows = plan['rt'], plan['query_rows'], plan['p2n_rows']
+        (attn, p2n) = plan['launches']
+        for launch in plan['launches']:
+            assert launch['smem'] <= ia.SMEM_BLOCK, (L, launch)
+            assert max(launch['grid'][1:]) <= 65535, (L, launch)
+        # The attention: (query tile, head, replica group).
+        gx, gy, gz = attn['grid']
+        i = _cover(L, range(0, gx * qt, qt), qt)
+        h = _cover(heads, range(gy), 1)
+        n = _cover(N, range(0, gz * rt, rt), rt)
+        assert gx * qt - L < qt and gz * rt == N, (L, attn)
+        assert (np.einsum('n,i,h->nih', n, i, h) == 1).all(), (L, attn)
+        # The p2n: (alpha-row block, query rows, complex); alpha row m of
+        # complex c is trajectory c reps + m // H, head m % H.
+        gx, gy, gz = p2n['grid']
+        m = _cover(reps * heads, range(0, gx * ia.P2N_M, ia.P2N_M), ia.P2N_M)
+        i = _cover(L, range(0, gy * rows, rows), rows)
+        c = _cover(Nc, range(gz), 1)
+        assert gx * ia.P2N_M - reps * heads < ia.P2N_M, (L, p2n)
+        assert gy * rows - L < rows, (L, p2n)
+        cover = np.einsum('c,rh,i->crih', c, m.reshape(reps, heads), i)
+        assert (cover.reshape(N, L, heads) == 1).all(), (L, p2n)

@@ -23,10 +23,14 @@
 // H = 12, bf16) K2 moves ~25 MB and does ~0.8 GFLOP, K3 ~41 MB and ~1.6
 // GFLOP: far below the ~295 FLOP/byte where the H100's bf16 tensor cores
 // become the limit, so both are bounded by device-memory bytes (~7.5 us and
-// ~12 us at 3.35 TB/s). This first version computes on the CUDA cores in
-// f32 (register-tiled products from shared memory, the same code for both
-// types); tensor-core tiles, fusing the two backward passes and keeping
-// alpha out of device memory are later work.
+// ~12 us at 3.35 TB/s). Two routes, named by the wrapper's attention_plan
+// (ops/ipa_attention.py) and by ipa_attention_plan below:
+//   tile        bf16, L up to 256 (the training path): K2 is K1's
+//               replica-group attention tile with alpha in K2's layout (S1
+//               v1's kernel; see "K2, tiles"), K3 one launch of a thread-
+//               block cluster on mma.sync (see "K3, tiles");
+//   cuda_cores  float32, and bf16 past L = 256: the f32 CUDA-core tiles
+//               below (fwd_kernel; bwd_rows_kernel + bwd_cols_kernel).
 //
 // K4, at the sampler's shapes (N = 256 trajectories of one complex, L =
 // 128, H = 12, Cz = 64, bf16), moves ~254 MB (qa, ka, vvp, out and p2n at
@@ -36,12 +40,14 @@
 // reads its own (L, Cz) slab z[c, i]) and is shared by the reps * H
 // (replica, head) alpha rows of that row: K1's M = reps H. In bf16 up to
 // L = 256 (Cz = 64, H a multiple of 4) K4 runs on K1's replica-group
-// attention tile (csrc/k1_tiles.cuh; see "K4, tiles" below); float32, and
-// bf16 past L = 256, take K2's CUDA-core f32 tiles (fwd_p2n_kernel).
+// attention tile (csrc/k1_tiles.cuh; see "K4, tiles" below); float32, bf16
+// past L = 256 and bf16 with another Cz or H take K2's CUDA-core f32 tiles
+// (fwd_p2n_kernel).
 //
-// Design. The TPU grid walks one trajectory at a time and holds whole L x L
-// blocks in VMEM; here blocks run in parallel, so every pass is a grid over
-// (row tile, head, trajectory) and nothing carries between blocks.
+// Design of the CUDA-core route. The TPU grid walks one trajectory at a time
+// and holds whole L x L blocks in VMEM; here blocks run in parallel, so
+// every pass is a grid over (row tile, head, trajectory) and nothing carries
+// between blocks.
 //   fwd_kernel      per 32 query rows: logits for the whole row in shared
 //                   memory (<= 32 x 512 f32), max-subtract softmax, alpha
 //                   (rounded to T, as the TPU kernel rounds before its value
@@ -63,7 +69,11 @@
 // L is a runtime value (the wrapper takes multiples of 16 up to 512; ragged
 // tiles are masked here), H and N are grid dimensions.
 
+#include <cooperative_groups.h>
+
 #include "k1_tiles.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -444,6 +454,368 @@ k4_p2n_kernel(const bf16* __restrict__ alpha, const bf16* __restrict__ z,
   }
 }
 
+// ------------------------------------------------------------ K2, tiles
+// bf16, L a multiple of 16 up to 256: K1's replica-group attention tile
+// with alpha in K2's (N, H, L, L) layout, a block per (query tile, head, rt
+// replicas of one complex), 64 query rows and four warps a block: up to
+// L = 128 one stage (AttnLean64: 63,488 bytes at L = 128, three blocks an
+// SM, 384 blocks at the training shape N = 16, H = 12), past it AttnLarge's
+// two, as S1 runs it. At the training shape this tile took 0.0128 ms against
+// 0.0132 for AttnLean's 128 rows (192 blocks, two an SM) on an H100 80GB
+// HBM3 at 700 W (chip_smoke.py phase 4).
+// A plan changes how many warps and stages a block has, never a warp's sums,
+// so out and alphas are S1 v1's bit for bit.
+using AttnLean64 = AttnPlan<128, 4, 1>;
+constexpr int K2_ROWS = 64;                 // query rows a K2 tile block
+
+template <class Plan>
+__global__ void __launch_bounds__(Plan::QW * 32, 1)
+k2_tile_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
+               const bf16* __restrict__ vv, const bf16* __restrict__ bias,
+               bf16* __restrict__ out, bf16* __restrict__ alphas, int L, int H, int reps,
+               int rt) {
+  extern __shared__ __align__(128) unsigned char smraw[];
+  const int h = blockIdx.y, n0 = blockIdx.z * rt;
+  k1_attn_tile<Plan, ALPHA_K2>(blockIdx.x * Plan::QT, h, n0, rt, qa, ka, vv,
+                               bias + ((size_t)(n0 / reps) * H + h) * L * L, out, alphas, L,
+                               H, reps, smraw);
+}
+
+// ------------------------------------------------------------ K3, tiles
+// bf16, L a multiple of 16 up to 256: the whole backward in one launch. A
+// thread-block cluster per (trajectory n, head h) of C = ceil(L / 64)
+// blocks (grid (C, H, N)); block r owns query rows 64 r .. 64 r + 63 in
+// phase 1 and key rows 64 r .. in phase 2; four warps of 16 rows each.
+//   phase 1  dal = dout . vvp^T (mma.sync from the block's dout rows and
+//            all of vvp), + dalphas, tmp = dal alpha, r_i = sum_j tmp by
+//            quad shuffles, dlog = tmp - alpha r_i in f32 registers (the
+//            TPU kernel's order); dbias = bf16(dlog) out; dqa = dlog . ka.
+//            dlog enters the tensor cores as hi = bf16(dlog) plus lo =
+//            bf16(dlog - hi), two mma.sync into one f32 sum: dlog's rows sum
+//            to zero, so its products cancel, and dlog rounded to bf16 alone
+//            misses the bf16 gate for dqa and dka (tests/test_torch_k3.py
+//            pins this). hi, lo and alpha go into shared memory transposed
+//            ([key j][query i], by stmatrix.trans), for phase 2.
+//   phase 2  after cluster.sync(): dka = dlog^T . qa (hi and lo) and dvvp =
+//            alpha^T . dout for the block's 64 key rows, the A fragments read
+//            straight from every peer's transposed tiles through distributed
+//            shared memory (32-bit loads: a row of a transposed tile is a
+//            fragment row), qa and dout rows from the block's own copy.
+//   A final cluster.sync() keeps each block's shared memory alive until no
+//   peer reads it. No atomics: every output element has one writer and a
+//   fixed order of sums, so two launches are bitwise equal.
+// Shared memory (bf16, L rows of KLD each): R holds vvp, then qa (its copy
+// starts once dal is taken and lands during the rest of phase 1); K ka, then
+// each warp's 16-row staging tile for the 16-byte stores of dbias, dqa, dka
+// and dvvp; D dout; Th, Tl, Ta (L key rows x 64 query columns) dlog hi, lo
+// and alpha transposed. 110,592 bytes at L = 128 (two blocks an SM),
+// 221,184 at L = 256.
+constexpr int K3_ROWS = 64;                 // query / key rows a block
+constexpr int K3_NT = K3_ROWS / 16 * 32;    // 128 threads, a warp per 16 rows
+
+__host__ __device__ constexpr size_t k3_smem(int L) {
+  return (size_t)6 * L * KLD * sizeof(bf16);
+}
+static_assert(k3_smem(256) <= SMEM_BLOCK, "K3's tile exceeds sm_90 at L=256");
+static_assert(2 * (k3_smem(128) + SMEM_RESERVED) <= SMEM_SM, "two K3 tiles must share an SM");
+
+__device__ __forceinline__ void stsm_x4_t(void* p, uint32_t r0, uint32_t r1, uint32_t r2,
+                                          uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(smem_u32(p)), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// (a, b) -> hi = bf16x2(a, b), lo = bf16x2(a - hi, b - hi).
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 hv = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(hv);
+  const __nv_bfloat162 lv = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&hv);
+  lo = *reinterpret_cast<const uint32_t*>(&lv);
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// A warp's 16 x 64 f32 accumulators (mma C fragments) rounded to bf16,
+// through its staging tile Sw into 16 rows (pitch ld) at dst: 16-byte
+// stores. A warp's 16 rows are all valid or it has none (L % 16 == 0).
+__device__ __forceinline__ void store_frag_rows(float (&acc)[SLOT / 8][4], bf16* Sw,
+                                                bf16* __restrict__ dst, size_t ld, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < SLOT / 8; ++j) {
+    st_shared_u32(Sw + g * KLD + j * 8 + 2 * t, pack2(acc[j][0], acc[j][1]));
+    st_shared_u32(Sw + (g + 8) * KLD + j * 8 + 2 * t, pack2(acc[j][2], acc[j][3]));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int u = lane; u < 128; u += 32) {
+    const int r = u >> 3, q = u & 7;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * ld + q * 8) = ld_shared_v4(Sw + r * KLD + q * 8);
+  }
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(K3_NT, 1)
+k3_tile_kernel(const bf16* __restrict__ qa, const bf16* __restrict__ ka,
+               const bf16* __restrict__ vv, const bf16* __restrict__ alphas,
+               const bf16* __restrict__ dout, const bf16* __restrict__ dalphas,
+               bf16* __restrict__ dqa, bf16* __restrict__ dka, bf16* __restrict__ dvv,
+               bf16* __restrict__ dbias, int L, int H) {
+  extern __shared__ __align__(128) unsigned char smraw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const int h = blockIdx.y, n = blockIdx.z, HD = H * SLOT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  bf16* R = reinterpret_cast<bf16*>(smraw);
+  bf16* K = R + L * KLD;
+  bf16* D = K + L * KLD;
+  bf16* Th = D + L * KLD;
+  bf16* Tl = Th + L * KLD;
+  bf16* Ta = Tl + L * KLD;
+  bf16* Sw = K + warp * 16 * KLD;    // staging, once every warp is done with ka
+  const size_t nb = (size_t)n * L, hb = ((size_t)n * H + h) * L;
+  const int nt = L >> 3;
+  const int i_first = rank * K3_ROWS + warp * 16;   // phase 1: query rows; phase 2: key rows
+  const bool rows_ok = i_first < L;                  // L % 16 == 0: all 16 rows or none
+
+  // All L rows of head h's 64-wide slot of an (N, L, H * 64) operand.
+  auto stage_rows = [&](bf16* dst, const bf16* src) {
+    for (int idx = tid; idx < L * 8; idx += K3_NT) {
+      const int row = idx >> 3, cc = (idx & 7) * 8;
+      cp_async16(dst + row * KLD + cc, src + (nb + row) * HD + h * SLOT + cc, true);
+    }
+    cp_async_commit();
+  };
+  stage_rows(R, vv);
+  stage_rows(D, dout);
+  stage_rows(K, ka);
+
+  // alpha and dalphas of the warp's rows in C-fragment order (rows g, g + 8,
+  // columns 8 jt + 2t, + 1). Up to L = 128 both are loaded while the copies
+  // land; past it (twice the registers) alpha after dal and dalphas pair by
+  // pair as it is used, or the kernel spills.
+  constexpr bool kEarly = KMAX <= 128;
+  const size_t e0 = (hb + i_first + g) * L + 2 * t, e1 = e0 + (size_t)8 * L;
+  uint32_t ap[KMAX / 8][2], dp[KMAX / 8][2];
+  auto ld_pairs = [&](const bf16* src, uint32_t (&dst)[KMAX / 8][2]) {
+#pragma unroll
+    for (int jt = 0; jt < KMAX / 8; ++jt) {
+      if (jt < nt) {
+        dst[jt][0] = __ldg(reinterpret_cast<const unsigned int*>(src + e0 + jt * 8));
+        dst[jt][1] = __ldg(reinterpret_cast<const unsigned int*>(src + e1 + jt * 8));
+      }
+    }
+  };
+  if constexpr (kEarly) {
+    if (rows_ok) {
+      ld_pairs(alphas, ap);
+      ld_pairs(dalphas, dp);
+    }
+  }
+  cp_async_wait<1>();              // vvp and dout (ka may still land)
+  __syncthreads();
+
+  // dal = dout . vvp^T in C fragments: s[jt] holds rows g, g + 8 and the key
+  // columns 8 jt + 2t, + 1 (as K1's logits).
+  float s[KMAX / 8][4];
+#pragma unroll
+  for (int jt = 0; jt < KMAX / 8; ++jt) s[jt][0] = s[jt][1] = s[jt][2] = s[jt][3] = 0.0f;
+  if (rows_ok) {
+    uint32_t df[SLOT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < SLOT / 16; ++kk)
+      ldsm_x4(df[kk], D + (i_first + (lane & 15)) * KLD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int jt = 0; jt < KMAX / 8; ++jt) {
+      if (jt < nt) {
+        const bf16* vr = R + (jt * 8 + (lane & 7)) * KLD + (lane >> 3) * 8;
+        uint32_t v0[4], v1[4];
+        ldsm_x4(v0, vr);
+        ldsm_x4(v1, vr + 32);
+        mma_bf16(s[jt], df[0], v0[0], v0[1]);
+        mma_bf16(s[jt], df[1], v0[2], v0[3]);
+        mma_bf16(s[jt], df[2], v1[0], v1[1]);
+        mma_bf16(s[jt], df[3], v1[2], v1[3]);
+      }
+    }
+  }
+  __syncthreads();                 // every warp is done with vvp: R takes qa
+  stage_rows(R, qa);
+
+  if (rows_ok) {
+    if constexpr (!kEarly) ld_pairs(alphas, ap);
+    // + dalphas, tmp = dal alpha, row sums, dlog = tmp - alpha r (f32).
+    float r0 = 0.0f, r1 = 0.0f;
+#pragma unroll
+    for (int jt = 0; jt < KMAX / 8; ++jt) {
+      if (jt < nt) {
+        if constexpr (!kEarly) {
+          dp[jt][0] = __ldg(reinterpret_cast<const unsigned int*>(dalphas + e0 + jt * 8));
+          dp[jt][1] = __ldg(reinterpret_cast<const unsigned int*>(dalphas + e1 + jt * 8));
+        }
+        const float2 d0 = unpack2(dp[jt][0]), d1 = unpack2(dp[jt][1]);
+        const float2 a0 = unpack2(ap[jt][0]), a1 = unpack2(ap[jt][1]);
+        s[jt][0] = (s[jt][0] + d0.x) * a0.x;
+        s[jt][1] = (s[jt][1] + d0.y) * a0.y;
+        s[jt][2] = (s[jt][2] + d1.x) * a1.x;
+        s[jt][3] = (s[jt][3] + d1.y) * a1.y;
+        r0 += s[jt][0] + s[jt][1];
+        r1 += s[jt][2] + s[jt][3];
+      }
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      r0 += __shfl_xor_sync(0xffffffffu, r0, o);
+      r1 += __shfl_xor_sync(0xffffffffu, r1, o);
+    }
+#pragma unroll
+    for (int jt = 0; jt < KMAX / 8; ++jt) {
+      if (jt < nt) {
+        const float2 a0 = unpack2(ap[jt][0]), a1 = unpack2(ap[jt][1]);
+        s[jt][0] -= a0.x * r0;
+        s[jt][1] -= a0.y * r0;
+        s[jt][2] -= a1.x * r1;
+        s[jt][3] -= a1.y * r1;
+      }
+    }
+
+    // hi, lo and alpha transposed into Th, Tl, Ta: the 16 x 16 block (this
+    // warp's rows, keys 16 kk ..) lands at rows 16 kk .., columns 16 warp ..
+    const int tr = (lane & 7) + ((lane >> 4) & 1) * 8, tc = warp * 16 + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kk = 0; kk < KMAX / 16; ++kk) {
+      if (2 * kk < nt) {
+        uint32_t hi[4], lo[4];
+        split2(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+        split2(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+        split2(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+        split2(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+        const int off = (kk * 16 + tr) * KLD + tc;
+        stsm_x4_t(Th + off, hi[0], hi[1], hi[2], hi[3]);
+        stsm_x4_t(Tl + off, lo[0], lo[1], lo[2], lo[3]);
+        stsm_x4_t(Ta + off, ap[2 * kk][0], ap[2 * kk][1], ap[2 * kk + 1][0], ap[2 * kk + 1][1]);
+      }
+    }
+  }
+  cp_async_wait<1>();              // ka (qa may still land)
+  __syncthreads();
+
+  float oc[SLOT / 8][4];
+  if (rows_ok) {
+    // dqa = dlog . ka: the split dlog registers are the A fragments.
+#pragma unroll
+    for (int j = 0; j < SLOT / 8; ++j) oc[j][0] = oc[j][1] = oc[j][2] = oc[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KMAX / 16; ++kk) {
+      if (2 * kk < nt) {
+        uint32_t hi[4], lo[4];
+        split2(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+        split2(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+        split2(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+        split2(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+        const bf16* kr = K + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * KLD + (lane >> 4) * 8;
+#pragma unroll
+        for (int d = 0; d < SLOT / 16; ++d) {
+          uint32_t kb[4];
+          ldsm_x4_t(kb, kr + d * 16);
+          mma_bf16(oc[2 * d], hi, kb[0], kb[1]);
+          mma_bf16(oc[2 * d], lo, kb[0], kb[1]);
+          mma_bf16(oc[2 * d + 1], hi, kb[2], kb[3]);
+          mma_bf16(oc[2 * d + 1], lo, kb[2], kb[3]);
+        }
+      }
+    }
+  }
+  __syncthreads();                 // every warp is done with ka: K stages the outputs
+  if (rows_ok) {
+    // dbias = bf16(dlog) (= hi), 64 key columns at a time through Sw.
+    bf16* drow = dbias + (hb + i_first) * L;
+#pragma unroll
+    for (int cb = 0; cb < KMAX / 64; ++cb) {
+      if (cb * 8 < nt) {
+        __syncwarp();
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int jt = cb * 8 + jj;
+          if (jt < nt) {
+            st_shared_u32(Sw + g * KLD + jj * 8 + 2 * t, pack2(s[jt][0], s[jt][1]));
+            st_shared_u32(Sw + (g + 8) * KLD + jj * 8 + 2 * t, pack2(s[jt][2], s[jt][3]));
+          }
+        }
+        __syncwarp();
+        const int units = min(8, nt - cb * 8);
+#pragma unroll
+        for (int u = lane; u < 128; u += 32) {
+          const int r = u >> 3, q = u & 7;
+          if (q < units)
+            *reinterpret_cast<uint4*>(drow + (size_t)r * L + cb * 64 + q * 8) =
+                ld_shared_v4(Sw + r * KLD + q * 8);
+        }
+      }
+    }
+    store_frag_rows(oc, Sw, dqa + (nb + i_first) * HD + h * SLOT, HD, lane);
+  }
+  cp_async_wait<0>();              // qa is in R
+  cluster.sync();                  // every block's Th, Tl, Ta and R are written
+
+  if (rows_ok) {
+    // dka = dlog^T . qa, dvvp = alpha^T . dout for key rows i_first ..: K
+    // runs over every block's query rows, rank by rank, 16 at a time.
+    float gk[SLOT / 8][4], gv[SLOT / 8][4];
+#pragma unroll
+    for (int j = 0; j < SLOT / 8; ++j) {
+      gk[j][0] = gk[j][1] = gk[j][2] = gk[j][3] = 0.0f;
+      gv[j][0] = gv[j][1] = gv[j][2] = gv[j][3] = 0.0f;
+    }
+    const int fo = (i_first + g) * KLD + 2 * t;    // a fragment row in a peer's T
+    for (int p = 0; p < C; ++p) {
+      const bf16* ph = cluster.map_shared_rank(Th, p);
+      const bf16* pl = cluster.map_shared_rank(Tl, p);
+      const bf16* pa = cluster.map_shared_rank(Ta, p);
+      const int np = min(K3_ROWS, L - p * K3_ROWS);
+#pragma unroll
+      for (int kk = 0; kk < K3_ROWS / 16; ++kk) {
+        if (kk * 16 < np) {
+          const int o = fo + kk * 16;
+          auto frag = [&](const bf16* base, uint32_t (&a)[4]) {
+            a[0] = *reinterpret_cast<const uint32_t*>(base + o);
+            a[1] = *reinterpret_cast<const uint32_t*>(base + o + 8 * KLD);
+            a[2] = *reinterpret_cast<const uint32_t*>(base + o + 8);
+            a[3] = *reinterpret_cast<const uint32_t*>(base + o + 8 * KLD + 8);
+          };
+          uint32_t ah[4], al[4], aa[4];
+          frag(ph, ah);
+          frag(pl, al);
+          frag(pa, aa);
+          const int ro = (p * K3_ROWS + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * KLD +
+                         (lane >> 4) * 8;
+#pragma unroll
+          for (int d = 0; d < SLOT / 16; ++d) {
+            uint32_t qb[4], db[4];
+            ldsm_x4_t(qb, R + ro + d * 16);
+            ldsm_x4_t(db, D + ro + d * 16);
+            mma_bf16(gk[2 * d], ah, qb[0], qb[1]);
+            mma_bf16(gk[2 * d], al, qb[0], qb[1]);
+            mma_bf16(gk[2 * d + 1], ah, qb[2], qb[3]);
+            mma_bf16(gk[2 * d + 1], al, qb[2], qb[3]);
+            mma_bf16(gv[2 * d], aa, db[0], db[1]);
+            mma_bf16(gv[2 * d + 1], aa, db[2], db[3]);
+          }
+        }
+      }
+    }
+    const size_t ob = (nb + i_first) * HD + h * SLOT;
+    store_frag_rows(gk, Sw, dka + ob, HD, lane);
+    store_frag_rows(gv, Sw, dvv + ob, HD, lane);
+  }
+  cluster.sync();                  // no block leaves while a peer may read it
+}
+
 // ------------------------------------------------------- K3, pass 1
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -602,14 +974,68 @@ int set_smem(K kernel, size_t bytes) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- K2 and K3: the plans
+// One plan per kernel and shape, the launches' own: route 1 (tile) or 0
+// (CUDA cores), then per launch its grid, threads, cluster size and shared
+// memory. ipa_attention_plan hands it to the wrapper's check.
+struct Shape {
+  int gx, gy, gz, threads, cluster;
+  size_t smem;
+};
+struct RoutePlan {
+  int tile, n;
+  Shape l[2];
+};
+
+bool tile_route(int dtype, int L) { return dtype == 1 && L <= 256; }
+
+// The CUDA-core launches: 32 query rows a block (fwd_kernel, and
+// bwd_rows_kernel: pass 0), 32 keys a block (bwd_cols_kernel: pass 1).
+Shape cc_shape(int N, int L, int H, int pass) {
+  if (pass == 0) return {(L + TQ - 1) / TQ, H, N, NT, 1, rows_smem(L)};
+  return {(L + CK - 1) / CK, H, N, NT, 1, cols_smem()};
+}
+
+// Replicas a K2 tile block serves (they share its bias rows), as K1 and K4
+// pick them: the largest of 4, 2 and 1 that divides reps.
+int replica_group(int reps) { return reps % 4 == 0 ? 4 : reps % 2 == 0 ? 2 : 1; }
+
+RoutePlan fwd_plan(int N, int L, int H, int reps, int dtype) {
+  RoutePlan p{};
+  p.n = 1;
+  if (tile_route(dtype, L)) {
+    p.tile = 1;
+    p.l[0] = {(L + K2_ROWS - 1) / K2_ROWS, H, N / replica_group(reps), K2_ROWS / 16 * 32, 1,
+              L > 128 ? AttnLarge::smem(L) : AttnLean64::smem(L)};
+  } else {
+    p.l[0] = cc_shape(N, L, H, 0);
+  }
+  return p;
+}
+
+RoutePlan bwd_plan(int N, int L, int H, int dtype) {
+  RoutePlan p{};
+  if (tile_route(dtype, L)) {
+    const int c = (L + K3_ROWS - 1) / K3_ROWS;
+    p.tile = 1;
+    p.n = 1;
+    p.l[0] = {c, H, N, K3_NT, c, k3_smem(L)};
+  } else {
+    p.n = 2;
+    p.l[0] = cc_shape(N, L, H, 0);
+    p.l[1] = cc_shape(N, L, H, 1);
+  }
+  return p;
+}
+
 template <typename T>
 int launch_fwd(const void* qa, const void* ka, const void* vv,
                const void* bias, void* out, void* alphas, int N, int L, int H,
                int reps, cudaStream_t stream) {
-  const size_t smem = rows_smem(L);
-  int err = set_smem(fwd_kernel<T>, smem);
+  const Shape sh = cc_shape(N, L, H, 0);
+  int err = set_smem(fwd_kernel<T>, sh.smem);
   if (err) return err;
-  fwd_kernel<T><<<dim3((L + TQ - 1) / TQ, H, N), NT, smem, stream>>>(
+  fwd_kernel<T><<<dim3(sh.gx, sh.gy, sh.gz), sh.threads, sh.smem, stream>>>(
       static_cast<const T*>(qa), static_cast<const T*>(ka),
       static_cast<const T*>(vv), static_cast<const T*>(bias),
       static_cast<T*>(out), static_cast<T*>(alphas), L, H, reps);
@@ -698,24 +1124,66 @@ int launch_k4(const bf16* qa, const bf16* ka, const bf16* vv, const bf16* bias,
   return launch_k4_p2n(alpha, z, p2n, N, L, H, reps, rows, k4_p2n_stages(L), stream);
 }
 
+template <class Plan>
+int launch_k2_tile(const void* qa, const void* ka, const void* vv, const void* bias, void* out,
+                   void* alphas, int N, int L, int H, int reps, const Shape& s,
+                   cudaStream_t stream) {
+  int err = set_smem(k2_tile_kernel<Plan>, s.smem);
+  if (err) return err;
+  k2_tile_kernel<Plan><<<dim3(s.gx, s.gy, s.gz), s.threads, s.smem, stream>>>(
+      static_cast<const bf16*>(qa), static_cast<const bf16*>(ka),
+      static_cast<const bf16*>(vv), static_cast<const bf16*>(bias), static_cast<bf16*>(out),
+      static_cast<bf16*>(alphas), L, H, reps, N / s.gz);
+  return (int)cudaGetLastError();
+}
+
+// One launch of a (C, 1, 1) cluster per (n, h), by cudaLaunchKernelEx.
+template <int KMAX>
+int launch_k3_tile(const void* qa, const void* ka, const void* vv, const void* alphas,
+                   const void* dout, const void* dalphas, void* dqa, void* dka, void* dvv,
+                   void* dbias, int L, int H, const Shape& s, cudaStream_t stream) {
+  int err = set_smem(k3_tile_kernel<KMAX>, s.smem);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(s.gx, s.gy, s.gz);
+  cfg.blockDim = dim3(s.threads);
+  cfg.dynamicSmemBytes = s.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = s.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = (int)cudaLaunchKernelEx(
+      &cfg, k3_tile_kernel<KMAX>, static_cast<const bf16*>(qa), static_cast<const bf16*>(ka),
+      static_cast<const bf16*>(vv), static_cast<const bf16*>(alphas),
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(dalphas),
+      static_cast<bf16*>(dqa), static_cast<bf16*>(dka), static_cast<bf16*>(dvv),
+      static_cast<bf16*>(dbias), L, H);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* qa, const void* ka, const void* vv,
                const void* alphas, const void* dout, const void* dalphas,
                void* dqa, void* dka, void* dvv, void* dbias, float* rowsum,
                int N, int L, int H, cudaStream_t stream) {
-  const size_t smem1 = rows_smem(L), smem2 = cols_smem();
-  int err = set_smem(bwd_rows_kernel<T>, smem1);
+  const Shape s1 = cc_shape(N, L, H, 0), s2 = cc_shape(N, L, H, 1);
+  int err = set_smem(bwd_rows_kernel<T>, s1.smem);
   if (err) return err;
-  bwd_rows_kernel<T><<<dim3((L + TQ - 1) / TQ, H, N), NT, smem1, stream>>>(
+  bwd_rows_kernel<T><<<dim3(s1.gx, s1.gy, s1.gz), s1.threads, s1.smem, stream>>>(
       static_cast<const T*>(ka), static_cast<const T*>(vv),
       static_cast<const T*>(alphas), static_cast<const T*>(dout),
       static_cast<const T*>(dalphas), static_cast<T*>(dqa),
       static_cast<T*>(dbias), rowsum, L, H);
   err = (int)cudaGetLastError();
   if (err) return err;
-  err = set_smem(bwd_cols_kernel<T>, smem2);
+  err = set_smem(bwd_cols_kernel<T>, s2.smem);
   if (err) return err;
-  bwd_cols_kernel<T><<<dim3((L + CK - 1) / CK, H, N), NT, smem2, stream>>>(
+  bwd_cols_kernel<T><<<dim3(s2.gx, s2.gy, s2.gz), s2.threads, s2.smem, stream>>>(
       static_cast<const T*>(qa), static_cast<const T*>(vv),
       static_cast<const T*>(alphas), static_cast<const T*>(dout),
       static_cast<const T*>(dalphas), rowsum, static_cast<T*>(dka),
@@ -727,7 +1195,10 @@ int launch_bwd(const void* qa, const void* ka, const void* vv,
 
 // dtype: 0 = float32, 1 = bfloat16. Each entry point launches on `stream`
 // and returns the first non-zero cudaGetLastError() (0 when every launch was
-// accepted); it does not synchronise.
+// accepted); it does not synchronise. ipa_attention_fwd and
+// ipa_attention_bwd are the CUDA-core route, in either type (the wrapper
+// takes it for float32 and bf16 past L = 256; bf16 up to 256 runs the
+// tiles, ipa_attention_fwd_tile and ipa_attention_bwd_tile).
 extern "C" int ipa_attention_fwd(const void* qa, const void* ka,
                                  const void* vv, const void* bias, void* out,
                                  void* alphas, int N, int L, int H, int reps,
@@ -808,6 +1279,60 @@ extern "C" int ipa_attention_bwd(const void* qa, const void* ka,
     return launch_bwd<bf16>(qa, ka, vv, alphas, dout, dalphas, dqa, dka, dvv,
                             dbias, rowsum, N, L, H, s);
   return (int)cudaErrorInvalidValue;
+}
+
+static bool tile_shapes_ok(int N, int L, int H, int reps) {
+  return L % 16 == 0 && L >= 16 && L <= 256 && H >= 1 && H <= 65535 && reps >= 1 &&
+         N % reps == 0 && N >= 1 && N <= 65535;
+}
+
+// K2 on K1's attention tile (bf16, L a multiple of 16 up to 256), 64 query
+// rows a block. On `stream`; returns cudaGetLastError().
+extern "C" int ipa_attention_fwd_tile(const void* qa, const void* ka, const void* vv,
+                                      const void* bias, void* out, void* alphas, int N, int L,
+                                      int H, int reps, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (!tile_shapes_ok(N, L, H, reps)) return (int)cudaErrorInvalidValue;
+  const Shape sh = fwd_plan(N, L, H, reps, 1).l[0];
+  if (L > 128)
+    return launch_k2_tile<AttnLarge>(qa, ka, vv, bias, out, alphas, N, L, H, reps, sh, s);
+  return launch_k2_tile<AttnLean64>(qa, ka, vv, bias, out, alphas, N, L, H, reps, sh, s);
+}
+
+// K3 in one launch (bf16, L a multiple of 16 up to 256); dbias per
+// trajectory (N, H, L, L). On `stream`; returns the first non-zero error.
+extern "C" int ipa_attention_bwd_tile(const void* qa, const void* ka, const void* vv,
+                                      const void* alphas, const void* dout,
+                                      const void* dalphas, void* dqa, void* dka, void* dvv,
+                                      void* dbias, int N, int L, int H, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (!tile_shapes_ok(N, L, H, 1)) return (int)cudaErrorInvalidValue;
+  const Shape sh = bwd_plan(N, L, H, 1).l[0];
+  if (L <= 128)
+    return launch_k3_tile<128>(qa, ka, vv, alphas, dout, dalphas, dqa, dka, dvv, dbias, L, H,
+                               sh, s);
+  return launch_k3_tile<256>(qa, ka, vv, alphas, dout, dalphas, dqa, dka, dvv, dbias, L, H,
+                             sh, s);
+}
+
+// K2's and K3's plans at (N, L, H, reps, dtype), for the wrapper's check: out[0..13] K2, out[14..27] K3, each [route (1 tile,
+// 0 CUDA cores), launches, then per launch (grid x, y, z, threads, cluster,
+// smem) x 2, zeros past the last launch].
+extern "C" int ipa_attention_plan(int N, int L, int H, int reps, int dtype, long long* out) {
+  if (L % 16 != 0 || L < 16 || L > 512 || reps < 1 || N % reps != 0 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const RoutePlan plans[2] = {fwd_plan(N, L, H, reps, dtype), bwd_plan(N, L, H, dtype)};
+  for (int k = 0; k < 2; ++k) {
+    long long* o = out + 14 * k;
+    o[0] = plans[k].tile;
+    o[1] = plans[k].n;
+    for (int i = 0; i < 2; ++i) {
+      const Shape& sh = plans[k].l[i];
+      const long long v[6] = {sh.gx, sh.gy, sh.gz, sh.threads, sh.cluster, (long long)sh.smem};
+      for (int e = 0; e < 6; ++e) o[2 + 6 * i + e] = i < plans[k].n ? v[e] : 0;
+    }
+  }
+  return 0;
 }
 
 extern "C" const char* ipa_attention_error_string(int err) {

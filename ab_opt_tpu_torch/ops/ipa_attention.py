@@ -24,13 +24,19 @@ The JAX layout at every public function, so tests feed both the same arrays
 :func:`ipa_attention_fwd_p2n` dispatch on the device of their input: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel (float32
 or bfloat16, L a multiple of 16 up to 512) or raises. There is no
-fallback. K4 is forward-only, as on the TPU: a tensor that requires a
-gradient raises on any device. On the card K4 takes one of two routes,
-named by :func:`fwd_p2n_plan`: K1's replica-group attention tile for
-bfloat16 up to L = 256 (Cz = 64, H a multiple of 4), the CUDA-core tiles
-for float32 and for bfloat16 past L = 256; any other shape raises.
-Counters: ``.launches`` on the three wrappers (one per call, whatever the
-number of internal launches), and ``.calls`` on the plain versions.
+fallback. On the card K2 and K3 take one of two routes, named by
+:func:`attention_plan`: for bfloat16 up to L = 256 (the training path) K2
+is K1's replica-group attention tile with alpha in K2's layout and K3 one
+launch of a thread-block cluster on the tensor cores; float32, and
+bfloat16 past L = 256, take the CUDA-core tiles (K3 as two launches). K4
+is forward-only, as on the TPU: a tensor that requires a gradient raises on
+any device. On the card K4 takes one of two routes, named by
+:func:`fwd_p2n_plan`: K1's replica-group attention tile for bfloat16 up to
+L = 256 with Cz = 64 and H a multiple of 4, the CUDA-core tiles for every
+other shape within their limits (H up to 16, Cz a multiple of 4 up to 64);
+any other shape raises. Counters: ``.launches`` on the three wrappers (one
+per call, whatever the number of internal launches), and ``.calls`` on the
+plain versions.
 """
 from __future__ import annotations
 
@@ -121,10 +127,10 @@ ipa_attention_bwd_reference.calls = 0
 ipa_attention_fwd_p2n_reference.calls = 0
 
 
-# ------------------------------------------------------------ K4's plan
+# ------------------------------------------------------- K2, K3, K4: plans
 # The same arithmetic as the source's shared-memory and grid plans
-# (csrc/ipa_attention.cu, csrc/k1_tiles.cuh); phase 7 of chip_smoke.py and a
-# card test hold the two against each other.
+# (csrc/ipa_attention.cu, csrc/k1_tiles.cuh); phases 4 and 7 of
+# chip_smoke.py and card tests hold the two against each other.
 
 _KLD = SLOT + 8            # pitch of a staged 64-wide bf16 row
 _CC_TK, _CC_TLD = 64, SLOT + 1
@@ -152,6 +158,84 @@ def _cc_rows(L: int, H: int, tsize: int) -> int:
     return 0
 
 
+TILE_ROWS = 64             # a tile block's query rows (K2, K3), then key rows (K3)
+
+
+def _tile_smem(L: int, qt: int, ns: int) -> int:
+    """Shared memory of K1's attention tile at L: the bias rows of qt query
+    rows and ns stages of [K | V | Q] (AttnPlan::smem)."""
+    return qt * (L + 8) * 2 + ns * (2 * L + qt) * _KLD * 2
+
+
+def _replica_group(reps: int) -> int:
+    """Replicas a tile block serves (they share its bias rows): the largest
+    of 4, 2 and 1 that divides reps, as K1 and K4 pick them."""
+    return next(r for r in (4, 2, 1) if reps % r == 0)
+
+
+def _launch(name, grid, threads, smem, cluster=1) -> dict:
+    return {'name': name, 'grid': grid, 'threads': threads,
+            'cluster': cluster, 'smem': smem}
+
+
+def attention_plan(dtype, N: int, L: int, H: int, reps: int = 1) -> dict:
+    """K2's and K3's launch plans, a pure function of the shapes: ``{'fwd':
+    ..., 'bwd': ...}``, each with its ``route`` and, per launch, its grid,
+    threads, cluster size and shared memory (cached per shape: not to be
+    modified). Raises ValueError for a shape neither route takes.
+
+    ``'tile'`` (bfloat16, L a multiple of 16 up to 256): K2 is K1's
+    attention tile with alpha in K2's layout, a block per (64 query rows,
+    head, ``rt`` replicas), four warps and one stage up to L = 128, two past
+    it. K3 is one launch of a ``cluster`` of ceil(L / 64) blocks per
+    (trajectory, head), grid (cluster, H, N): block r takes query rows 64 r
+    .. in its first phase and key rows 64 r .. in its second.
+    ``'cuda_cores'`` (float32, or bfloat16 past L = 256): 32 query rows a
+    block, and K3's second launch 32 keys a block."""
+    return {'fwd': _fwd_plan(dtype, N, L, H, reps),
+            'bwd': _bwd_plan(dtype, N, L, H)}
+
+
+def _plan_shapes(dtype, N: int, L: int, reps: int) -> bool:
+    """Raise on a shape neither route takes; True on the tile route."""
+    _require(dtype in _DTYPES, f'dtype {dtype} (float32 or bfloat16)')
+    _require(L % 16 == 0 and 16 <= L <= MAX_L,
+             f'L={L} (multiple of 16, at most {MAX_L})')
+    _require(reps >= 1 and N % reps == 0, f'reps={reps} must divide N={N}')
+    return dtype == torch.bfloat16 and L <= TILE_MAX_L
+
+
+def _cc_rows_launch(name: str, N: int, L: int, H: int) -> dict:
+    return _launch(name, (_cdiv(L, 32), H, N), 256,
+                   ((32 + _CC_TK) * _CC_TLD + 32 * (L + 1)) * 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def _fwd_plan(dtype, N: int, L: int, H: int, reps: int) -> dict:
+    if _plan_shapes(dtype, N, L, reps):
+        rt = _replica_group(reps)
+        return {'route': 'tile', 'query_rows': TILE_ROWS, 'rt': rt,
+                'launches': [_launch(
+                    'k2_tile', (_cdiv(L, TILE_ROWS), H, N // rt),
+                    TILE_ROWS // 16 * 32,
+                    _tile_smem(L, TILE_ROWS, 2 if L > 128 else 1))]}
+    return {'route': 'cuda_cores', 'query_rows': 32, 'rt': 1,
+            'launches': [_cc_rows_launch('fwd', N, L, H)]}
+
+
+@functools.lru_cache(maxsize=1024)
+def _bwd_plan(dtype, N: int, L: int, H: int) -> dict:
+    if _plan_shapes(dtype, N, L, 1):
+        c = _cdiv(L, TILE_ROWS)
+        return {'route': 'tile', 'rows': TILE_ROWS,
+                'launches': [_launch('k3_tile', (c, H, N), 128,
+                                     6 * L * _KLD * 2, cluster=c)]}
+    return {'route': 'cuda_cores', 'rows': 32,
+            'launches': [_cc_rows_launch('rows', N, L, H), _launch(
+                'cols', (_cdiv(L, 32), H, N), 256,
+                ((32 + 2 * 32) * _CC_TLD + 2 * 32 * 33) * 4)]}
+
+
 def _p2n_ald(L: int) -> int:
     return max(L, TILE_CZ) + 8
 
@@ -161,7 +245,7 @@ def _attn_plan(L: int) -> tuple:
     stage so that two blocks share an SM; AttnLarge past it): (query rows,
     warps, stages, smem)."""
     qt, qw, ns = (128, 8, 1) if L <= 128 else (64, 4, 2)
-    return qt, qw, ns, qt * (L + 8) * 2 + ns * (2 * L + qt) * _KLD * 2
+    return qt, qw, ns, _tile_smem(L, qt, ns)
 
 
 def _p2n_stages(L: int) -> tuple:
@@ -182,18 +266,16 @@ def fwd_p2n_plan(dtype, N: int, L: int, H: int, Cz: int, reps: int,
     layout into a workspace of ``workspace_bytes``, then p2n in blocks of
     128 alpha rows and ``p2n_rows`` query rows (fewer where two blocks an
     SM, ``sms`` of them, would not be covered). ``'cuda_cores'`` (float32,
-    or bf16 past L = 256): K2's f32 tiles, ``query_rows`` a block."""
+    bf16 past L = 256, and bf16 with another Cz or H, as the JAX kernel
+    takes any): K2's f32 tiles, ``query_rows`` a block."""
     _require(dtype in _DTYPES, f'dtype {dtype} (float32 or bfloat16)')
     _require(L % 16 == 0 and 16 <= L <= MAX_L,
              f'L={L} (multiple of 16, at most {MAX_L})')
     _require(reps >= 1 and N % reps == 0, f'reps={reps} must divide N={N}')
     Nc = N // reps
-    if dtype == torch.bfloat16 and L <= TILE_MAX_L:
-        _require(Cz == TILE_CZ, f'Cz={Cz} (the bf16 tile takes Cz={TILE_CZ} '
-                                f'up to L={TILE_MAX_L})')
-        _require(H >= 4 and H % 4 == 0,
-                 f'H={H} (the bf16 tile takes a multiple of 4 heads)')
-        rt = next(r for r in (4, 2, 1) if reps % r == 0)
+    if (dtype == torch.bfloat16 and L <= TILE_MAX_L and Cz == TILE_CZ
+            and H >= 4 and H % 4 == 0):
+        rt = _replica_group(reps)
         qt, qw, _, smem = _attn_plan(L)
         PMB = _cdiv(reps * H, P2N_M)
         rows = max(1, min(P2N_BLOCK_ROWS, Nc * PMB * L // (2 * sms)))
@@ -230,6 +312,13 @@ def _library():
     lib.ipa_attention_fwd.restype = I
     lib.ipa_attention_bwd.argtypes = [P] * 11 + [I] * 4 + [P]
     lib.ipa_attention_bwd.restype = I
+    lib.ipa_attention_fwd_tile.argtypes = [P] * 6 + [I] * 4 + [P]
+    lib.ipa_attention_fwd_tile.restype = I
+    lib.ipa_attention_bwd_tile.argtypes = [P] * 10 + [I] * 3 + [P]
+    lib.ipa_attention_bwd_tile.restype = I
+    lib.ipa_attention_plan.argtypes = [I] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.ipa_attention_plan.restype = I
     lib.ipa_attention_fwd_p2n.argtypes = [P] * 7 + [I] * 6 + [P]
     lib.ipa_attention_fwd_p2n.restype = I
     lib.ipa_attention_fwd_p2n_tile.argtypes = [I] * 3
@@ -287,47 +376,114 @@ def _raise_on(err: int, what: str):
                            f'({msg})')
 
 
+def _launch_fwd(qa, ka, vvp, bias, reps, N, L, H, plan):
+    """K2's launch on checked CUDA operands of shapes (N, L, H) by ``plan``."""
+    lib = _library()
+    with torch.cuda.device(qa.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty_like(qa)
+        alphas = torch.empty((N, H, L, L), dtype=qa.dtype, device=qa.device)
+        ptrs = [a.data_ptr() for a in (qa, ka, vvp, bias, out, alphas)]
+        if plan['route'] == 'tile':
+            err = lib.ipa_attention_fwd_tile(*ptrs, N, L, H, reps, stream)
+        else:
+            err = lib.ipa_attention_fwd(*ptrs, N, L, H, reps,
+                                        _DTYPES[qa.dtype], stream)
+    _raise_on(err, 'ipa_attention_fwd')
+    return out, alphas
+
+
+def _launch_bwd(qa, ka, vvp, alphas, dout, dalphas, N, L, H, plan):
+    """K3's launches on checked CUDA operands of shapes (N, L, H) by
+    ``plan``."""
+    lib = _library()
+    with torch.cuda.device(qa.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        dqa, dka, dvvp = (torch.empty_like(qa) for _ in range(3))
+        dbias = torch.empty_like(alphas)
+        ptrs = [a.data_ptr() for a in (qa, ka, vvp, alphas, dout, dalphas,
+                                       dqa, dka, dvvp, dbias)]
+        if plan['route'] == 'tile':
+            err = lib.ipa_attention_bwd_tile(*ptrs, N, L, H, stream)
+        else:
+            rowsum = torch.empty((N, H, L), dtype=torch.float32,
+                                 device=qa.device)
+            err = lib.ipa_attention_bwd(*ptrs, rowsum.data_ptr(), N, L, H,
+                                        _DTYPES[qa.dtype], stream)
+    _raise_on(err, 'ipa_attention_bwd')
+    return dqa, dka, dvvp, dbias
+
+
+def fwd_on_route(qa, ka, vvp, bias, reps: int, plan: dict):
+    """K2's launch on CUDA operands by ``plan`` (``attention_plan(...)
+    ['fwd']``, or another route's plan for a side-by-side timing): (out,
+    alphas). Checks like the wrapper; counts nothing."""
+    N, L, H = _check({'qa': qa, 'ka': ka, 'vvp': vvp, 'bias': bias}, reps)
+    _require(plan['route'] == 'cuda_cores' or qa.dtype == torch.bfloat16,
+             'the tile route takes bfloat16')
+    return _launch_fwd(qa, ka, vvp, bias, reps, N, L, H, plan)
+
+
+def bwd_on_route(qa, ka, vvp, alphas, dout, dalphas, plan: dict):
+    """K3's launches on CUDA operands by ``plan`` (``attention_plan(...)
+    ['bwd']``, or another route's plan): (dqa, dka, dvvp, dbias). Checks
+    like the wrapper; counts nothing."""
+    N, L, H = _check({'qa': qa, 'ka': ka, 'vvp': vvp, 'alphas': alphas,
+                      'dout': dout, 'dalphas': dalphas})
+    _require(plan['route'] == 'cuda_cores' or qa.dtype == torch.bfloat16,
+             'the tile route takes bfloat16')
+    return _launch_bwd(qa, ka, vvp, alphas, dout, dalphas, N, L, H, plan)
+
+
 def ipa_attention_fwd(qa, ka, vvp, bias, reps: int = 1):
     """K2: (out, alphas). A CPU ``qa`` takes the plain version; any other
-    device launches the kernel (one count on ``.launches``) or raises."""
+    device launches the kernel of :func:`attention_plan`'s route (one count
+    on ``.launches``) or raises."""
     if qa.device.type == 'cpu':
         return ipa_attention_fwd_reference(qa, ka, vvp, bias, reps)
     N, L, H = _check({'qa': qa, 'ka': ka, 'vvp': vvp, 'bias': bias}, reps)
-    lib = _library()
-    with torch.cuda.device(qa.device):
-        out = torch.empty_like(qa)
-        alphas = torch.empty((N, H, L, L), dtype=qa.dtype, device=qa.device)
-        err = lib.ipa_attention_fwd(
-            qa.data_ptr(), ka.data_ptr(), vvp.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), alphas.data_ptr(), N, L, H, reps,
-            _DTYPES[qa.dtype], torch.cuda.current_stream(qa.device).cuda_stream)
-    _raise_on(err, 'ipa_attention_fwd')
+    got = _launch_fwd(qa, ka, vvp, bias, reps, N, L, H,
+                      _fwd_plan(qa.dtype, N, L, H, reps))
     ipa_attention_fwd.launches += 1
-    return out, alphas
+    return got
 
 
 def ipa_attention_bwd(qa, ka, vvp, alphas, dout, dalphas):
     """K3: (dqa, dka, dvvp, dbias per trajectory). Dispatches like
-    :func:`ipa_attention_fwd`; one count on ``.launches`` per call (the
-    kernel runs as two launches)."""
+    :func:`ipa_attention_fwd`; one count on ``.launches`` per call (one
+    launch on the tile route, two on the CUDA cores)."""
     if qa.device.type == 'cpu':
         return ipa_attention_bwd_reference(qa, ka, vvp, alphas, dout, dalphas)
     N, L, H = _check({'qa': qa, 'ka': ka, 'vvp': vvp, 'alphas': alphas,
                       'dout': dout, 'dalphas': dalphas})
-    lib = _library()
-    with torch.cuda.device(qa.device):
-        dqa, dka, dvvp = (torch.empty_like(qa) for _ in range(3))
-        dbias = torch.empty_like(alphas)
-        rowsum = torch.empty((N, H, L), dtype=torch.float32, device=qa.device)
-        err = lib.ipa_attention_bwd(
-            qa.data_ptr(), ka.data_ptr(), vvp.data_ptr(), alphas.data_ptr(),
-            dout.data_ptr(), dalphas.data_ptr(), dqa.data_ptr(),
-            dka.data_ptr(), dvvp.data_ptr(), dbias.data_ptr(),
-            rowsum.data_ptr(), N, L, H, _DTYPES[qa.dtype],
-            torch.cuda.current_stream(qa.device).cuda_stream)
-    _raise_on(err, 'ipa_attention_bwd')
+    got = _launch_bwd(qa, ka, vvp, alphas, dout, dalphas, N, L, H,
+                      _bwd_plan(qa.dtype, N, L, H))
     ipa_attention_bwd.launches += 1
-    return dqa, dka, dvvp, dbias
+    return got
+
+
+def source_attention_plan(N: int, L: int, H: int, reps: int, dtype) -> dict:
+    """The source's own plan of K2 and K3 (``ipa_attention_plan``), for the
+    check against :func:`attention_plan`: ``{'fwd': (route, launches),
+    'bwd': ...}``, each launch (grid, threads, cluster, smem)."""
+    out = (ctypes.c_longlong * 28)()
+    _raise_on(_library().ipa_attention_plan(N, L, H, reps, _DTYPES[dtype],
+                                            out), 'ipa_attention_plan')
+    got = {}
+    for k, key in enumerate(('fwd', 'bwd')):
+        o = list(out[14 * k:14 * k + 14])
+        launches = [(tuple(o[2 + 6 * i:5 + 6 * i]), o[5 + 6 * i],
+                     o[6 + 6 * i], o[7 + 6 * i]) for i in range(o[1])]
+        got[key] = ('tile' if o[0] else 'cuda_cores', launches)
+    return got
+
+
+def plan_launches(plan: dict) -> dict:
+    """:func:`attention_plan`'s plan in :func:`source_attention_plan`'s
+    form."""
+    return {k: (p['route'], [(tuple(l['grid']), l['threads'], l['cluster'],
+                              l['smem']) for l in p['launches']])
+            for k, p in plan.items()}
 
 
 def source_plan(L: int) -> list:

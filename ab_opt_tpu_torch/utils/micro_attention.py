@@ -5,7 +5,7 @@ shape (N=256 replicas of one complex, L=128, H=12, Cz=64, bf16, seeded
 random operands) it prints ms per call, from CUDA events around ``iters``
 calls after one warm-up, of
 
-* v0, K2 (``ipa_attention_fwd``: per head, alphas out);
+* v0, K2 (``ipa_attention_fwd``: in bf16 K1's tile, alphas out);
 * v1 (K1's attention tile, alphas out in K2's layout), v2 (one warp a
   head, alphas out), v3 (v1 without the alphas) and v4 (phase-separated,
   p2n in the kernel);
@@ -100,7 +100,7 @@ def time_variants(qa, ka, vvp, bias, z, reps, iters=ITERS):
 
 
 LABELS = {
-    'v0': 'v0 K2 (per-head, alphas out)',
+    'v0': 'v0 K2 (ipa_attention_fwd, alphas out)',
     'v1': 'v1 K1 tile (alphas out)',
     'v2': 'v2 heads batched (alphas out)',
     'v3': 'v3 K1 tile, no alphas store',

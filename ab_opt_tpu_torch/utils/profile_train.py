@@ -12,21 +12,67 @@ time.
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python -m ab_opt_tpu_torch.utils.profile_train
+
+``--k3-launches`` prints instead, as one JSON line, the device kernels of
+one K3 call (``ipa_attention_bwd``) at the step's shape (bf16, N=16,
+L=128, H=12: the tile route) under ``torch.profiler``, after a warm-up
+call: ``[[name, count], ...]``. A profiler session after another in one
+process records no device events, so callers run it in a process of its
+own.
 """
 from __future__ import annotations
 
+import json
 import subprocess
+import sys
 import time
 
-K23_NAMES = ('fwd_kernel', 'bwd_rows_kernel', 'bwd_cols_kernel')
-BATCH, LENGTH = 16, 128
+# K2's and K3's kernels on either route: the tiles (bf16 up to L=256, the
+# training path) and the CUDA-core kernels (float32, bf16 past L=256).
+K23_NAMES = ('k2_tile_kernel', 'k3_tile_kernel', 'fwd_kernel',
+             'bwd_rows_kernel', 'bwd_cols_kernel')
+BATCH, LENGTH, HEADS = 16, 128, 12
 WARMUP, STEPS, TOP = 3, 5, 15
+
+
+def device_kernels(prof):
+    """Device-side work only: kernels, copies and sets, not the ranges the
+    profiler draws on the device timeline for annotated regions."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)]
+
+
+def k3_launches():
+    """The device kernels of one K3 call at the step's shape: [(name,
+    count), ...]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops import ipa_attention as ia
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+    HD = HEADS * 64
+    qa, ka, vvp, dout = (r(BATCH, LENGTH, HD) for _ in range(4))
+    bias = r(BATCH, HEADS, LENGTH, LENGTH)
+    dalphas = r(BATCH, HEADS, LENGTH, LENGTH)
+    with torch.no_grad():
+        alphas = ia.ipa_attention_fwd(qa, ka, vvp, bias)[1]
+        call = lambda: ia.ipa_attention_bwd(qa, ka, vvp, alphas, dout, dalphas)
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+    return [(e.key, e.count) for e in device_kernels(prof)]
 
 
 def main():
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ..models import DiffAb, DiffAbConfig
@@ -35,6 +81,9 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit('profile_train: needs a CUDA device')
+    if '--k3-launches' in sys.argv[1:]:
+        print(json.dumps(k3_launches()))
+        return
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip())
@@ -63,11 +112,7 @@ def main():
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_prof = run()
-    # Device-side work only: kernels, copies and sets, not the ranges the
-    # profiler draws on the device timeline for annotated regions.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, 'is_user_annotation', False)]
+    kernels = device_kernels(prof)
     per_step = lambda e: e.self_device_time_total / 1e3 / STEPS   # ms
     busy = sum(map(per_step, kernels))
     k23 = sum(per_step(e) for e in kernels

@@ -22,13 +22,23 @@ Phases, each fatal on failure:
      torch.profiler beside each launch's floor; K1's attention launch alone
      against its plain version and against scaled_dot_product_attention on
      the same operands (reps 256, L=128);
-  4. K2/K3 vs plain: the attention forward (out, alphas) and backward
-     (dqa, dka, dvvp, dbias) against their plain versions at the training
-     slice's shapes (N=16, L=128, H=12, bf16: each tensor within 1e-2
-     relative plus 1e-3 of its largest value), at (N=4, reps=2, L=128,
-     5 padded key columns, f32) and at (N=2, reps=2, L=48, 5 padded key
-     columns, f32), both f32 cases at atol/rtol 1e-3; times of both at
-     the slice's shapes;
+  4. K2/K3 vs plain: the wrapper's plan (attention_plan) against the
+     source's at L=16..512; the attention forward (out, alphas) and
+     backward (dqa, dka, dvvp, dbias) against their plain versions at
+     ATTN_CASES, each case's route and launches printed: bf16 on the tile
+     route (K2 on K1's attention tile, K3 one launch of a cluster) at the
+     training slice's shapes (N=16, L=128, H=12) and at L=16, 48, 128 and
+     256 with padded key columns, bf16 at L=512 and f32 on the CUDA cores;
+     bf16 within 1e-2 relative plus 1e-3 of each tensor's largest value,
+     f32 at atol/rtol 1e-3; each kernel launched twice, bitwise equal, and
+     on the tile route K2's out and alphas bitwise equal to S1 v1's; then
+     at the slice's shapes K2 and K3 against the CUDA-core kernels (their
+     first design) on the same operands, medians of 4 order-alternated
+     rounds of ATTN_ITERS calls each way: eager calls through the
+     wrappers, as the training step pays them (the kernels line's ms),
+     and device time from CUDA graphs of the same calls (its device_ms),
+     the plain times and the bounds; one K3 call under torch.profiler, in
+     a child process, is exactly one kernel;
   5. the sampling slice: DiffAb (bf16, seeded random weights) on a
      synthetic complex at L=128 answers three BatchedSampler requests
      (fan-out 32, 32, 256; 100 steps each). Each must give finite outputs,
@@ -43,8 +53,9 @@ Phases, each fatal on failure:
      parameters, batch, t and draws); then 1 warm-up and 10 timed steps
      through Trainer.train, whose finite-loss guard raises on any step
      with a non-finite loss, with exactly 60 K2 and 60 K3 launches (6 a
-     step) and no plain call; then the checkpoint it saved is resumed by
-     a fresh Trainer, which takes one more finite step;
+     step, on the tile route) and no plain call; then the checkpoint it
+     saved is resumed by a fresh Trainer, which takes one more finite
+     step;
   7. K4 vs plain: the wrapper's launch plan against the source's (the
      tile route at L=16..256, the CUDA-core route to L=512); the attention
      forward with the pair aggregation (out, p2n) against its plain version
@@ -54,7 +65,9 @@ Phases, each fatal on failure:
      1e-2 of |plain| plus 1e-3 of its largest value, o bitwise equal to
      K1's attention launch and p2n to K1's p2n launch on the same operands;
      f32 on the CUDA cores at (N=4, reps=2, L=128) and (N=3, reps=3, L=48),
-     atol/rtol 1e-3; every case launched twice, bitwise equal, its route
+     atol/rtol 1e-3, and bf16 at (N=4, reps=2, L=128, H=6, Cz=32), a shape
+     the tile does not take, under the bf16 gate; every case launched
+     twice, bitwise equal, its route
      and launches printed; then at the first case K4 against K1's two
      launches (the same composition) and S3 (v4, the earlier design of K4's
      function), medians of 4 order-alternated rounds, the plain time and
@@ -135,16 +148,29 @@ ATTN_BF16_RTOL = 1e-2
 ATTN_BF16_ATOL_FRAC = 1e-3
 ATTN_F32_TOL = 1e-3
 TRAIN_BATCH = 16
+# K2/K3 vs plain: (N, L, reps, dtype name, padded key columns). The first
+# is the training slice's shape and is timed against the CUDA-core
+# kernels (ATTN_ROUNDS alternated rounds of ATTN_ITERS calls); then bf16 on
+# the tile route at L=16, 48 (a ragged 64-row tile), 128 and 256, bf16 past
+# it on the CUDA cores (L=512), and float32 on the CUDA cores.
+ATTN_CASES = ((TRAIN_BATCH, L, 1, 'bfloat16', 0), (2, 16, 1, 'bfloat16', 0),
+              (4, 48, 2, 'bfloat16', 5), (4, L, 2, 'bfloat16', 5),
+              (4, 256, 2, 'bfloat16', 3), (2, 512, 1, 'bfloat16', 5),
+              (4, L, 2, 'float32', 5), (2, 48, 2, 'float32', 5))
+ATTN_ROUNDS = 4
+ATTN_ITERS = 50
 P2N_FANOUT = 256          # K4's timed case and the ipa_impl='pallas' request
-# K4 vs plain: (N, L, reps, dtype name, padded key columns). The first is
-# the sampler's shape and is timed (P2N_ROUNDS alternated rounds of
-# P2N_ITERS calls); then bf16 on the tile route at a ragged query tile
-# (L=144), L=256 (reps 2), reps 3 (blocks of one replica) and reps 4, and
-# float32 on the CUDA cores.
+# K4 vs plain: (N, L, reps, dtype name, padded key columns[, H, Cz]; H=12
+# and Cz=64 where not given). The first is the sampler's shape and is timed
+# (P2N_ROUNDS alternated rounds of P2N_ITERS calls); then bf16 on the tile
+# route at a ragged query tile (L=144), L=256 (reps 2), reps 3 (blocks of
+# one replica) and reps 4, and on the CUDA cores float32 and bf16 at H=6,
+# Cz=32 (a shape the tile does not take).
 P2N_CASES = ((P2N_FANOUT, L, P2N_FANOUT, 'bfloat16', 0),
              (8, 144, 4, 'bfloat16', 5), (4, 256, 2, 'bfloat16', 3),
              (6, L, 3, 'bfloat16', 5), (8, 48, 4, 'bfloat16', 5),
-             (4, L, 2, 'float32', 5), (3, 48, 3, 'float32', 0))
+             (4, L, 2, 'float32', 5), (3, 48, 3, 'float32', 0),
+             (4, L, 2, 'bfloat16', 5, 6, 32))
 P2N_ROUNDS = 4
 P2N_ITERS = 20
 TIMED_STEPS = 10
@@ -476,76 +502,143 @@ def _attention_case(N, Ln, reps, dtype, n_pad, seed, device, H=12):
             for a in (qa, ka, vvp, bias, dout, dalphas)]
 
 
-def phase_attention(device):
-    """K2/K3 vs their plain versions, then their times at the training
-    slice's shapes. Returns {'fwd': {...}, 'bwd': {...}} with max_abs_err,
-    ms, plain_ms, bound_ms and bound_by."""
+def _attention_plan_check():
+    """The wrapper's K2/K3 plan against the source's at L=16..512, both
+    types, a few heads and replica counts."""
     import torch
     from ab_opt_tpu_torch.ops import ipa_attention as ia
+    for dtype in (torch.float32, torch.bfloat16):
+        for Ln in range(16, ia.MAX_L + 1, 16):
+            for H, reps in ((12, 1), (6, 3), (20, 4), (12, 256)):
+                N = 4 * reps
+                want = ia.plan_launches(ia.attention_plan(dtype, N, Ln, H, reps))
+                got = ia.source_attention_plan(N, Ln, H, reps, dtype)
+                if got != want:
+                    raise SystemExit(f'K2/K3: the wrapper plans L={Ln}, H={H}, '
+                                     f'reps={reps}, {dtype} unlike the source '
+                                     f'({want} against {got})')
+    print('K2/K3 plan: the wrapper\'s plan is the source\'s at L=16..512, '
+          'float32 and bf16, (H, reps) (12, 1), (6, 3), (20, 4), (12, 256)')
+
+
+def phase_attention(device):
+    """K2/K3 vs their plain versions on both routes (see the module
+    docstring, phase 4), then their times at the training slice's shapes
+    against the CUDA-core kernels. Returns {'fwd': {...}, 'bwd': {...}}
+    with max_abs_err, ms (eager, per call through the wrapper), device_ms
+    (CUDA graphs), plain_ms, bound_ms and bound_by."""
+    import torch
+    from ab_opt_tpu_torch.ops import attention_variants as av
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
     torch.set_grad_enabled(False)
+    t0 = time.perf_counter()
+    _attention_plan_check()
     res = {k: {'max_abs_err': 0.0} for k in ('fwd', 'bwd')}
-    cases = ((TRAIN_BATCH, L, 1, torch.bfloat16, 0),
-             (4, L, 2, torch.float32, 5),
-             (2, 48, 2, torch.float32, 5))
-    for N, Ln, reps, dtype, n_pad in cases:
+    names = ('out', 'alphas', 'dqa', 'dka', 'dvvp', 'dbias')
+    timed = None
+    for N, Ln, reps, dname, n_pad in ATTN_CASES:
+        dtype = getattr(torch, dname)
         qa, ka, vvp, bias, dout, dalphas = _attention_case(
             N, Ln, reps, dtype, n_pad, seed=N + Ln, device=device)
-        fwd = lambda: ia.ipa_attention_fwd(qa, ka, vvp, bias, reps)
-        got = fwd()
+        H = bias.shape[1]
+        plan = ia.attention_plan(dtype, N, Ln, H, reps)
+        got = ia.ipa_attention_fwd(qa, ka, vvp, bias, reps)
         alphas = got[1]
-        bwd = lambda: ia.ipa_attention_bwd(qa, ka, vvp, alphas, dout, dalphas)
-        got_b = bwd()
+        got_b = ia.ipa_attention_bwd(qa, ka, vvp, alphas, dout, dalphas)
+        again = (ia.ipa_attention_fwd(qa, ka, vvp, bias, reps)
+                 + ia.ipa_attention_bwd(qa, ka, vvp, alphas, dout, dalphas))
         torch.cuda.synchronize()
         ref = ia.ipa_attention_fwd_reference(qa, ka, vvp, bias, reps)
         ref_b = ia.ipa_attention_bwd_reference(qa, ka, vvp, alphas, dout,
                                                dalphas)
-        names = ('out', 'alphas', 'dqa', 'dka', 'dvvp', 'dbias')
         errs = []
         for i, (name, a, b) in enumerate(zip(names, got + got_b,
                                              ref + ref_b)):
-            b = b.float()
-            err = (a.float() - b).abs()
-            if dtype == torch.bfloat16:
-                atol = ATTN_BF16_ATOL_FRAC * float(b.abs().max())
-                limit = atol + ATTN_BF16_RTOL * b.abs()
-            else:
-                atol = ATTN_F32_TOL
-                limit = ATTN_F32_TOL + ATTN_F32_TOL * b.abs()
-            ok = bool(torch.isfinite(a).all()) and bool((err <= limit).all())
-            errs.append(f'{name} {float(err.max()):.6f} (atol {atol:.2e})')
+            err, atol, ok = _k4_gate(a, b, dtype)
+            errs.append(f'{name} {err:.6f} (atol {atol:.2e})')
             key = 'fwd' if i < 2 else 'bwd'
-            res[key]['max_abs_err'] = max(res[key]['max_abs_err'],
-                                          float(err.max()))
+            res[key]['max_abs_err'] = max(res[key]['max_abs_err'], err)
             if not ok:
                 raise SystemExit(f'ipa_attention {name} disagrees with its '
                                  f'plain version (N={N}, L={Ln}, {dtype})')
+        same = all(torch.equal(a, b) for a, b in zip(got + got_b, again))
+        routes = '; '.join(
+            f'{k} {plan[k]["route"]}: ' + ', '.join(
+                f'{la["name"]} grid {la["grid"]} x {la["threads"]}, cluster '
+                f'{la["cluster"]}, {la["smem"]} B' for la in plan[k]['launches'])
+            for k in ('fwd', 'bwd'))
         rtol = (ATTN_BF16_RTOL if dtype == torch.bfloat16 else ATTN_F32_TOL)
         print(f'K2/K3 vs plain (N={N}, reps={reps}, L={Ln}, padded key '
-              f'columns={n_pad}, {str(dtype)[6:]}, rtol {rtol}): '
-              f'max_abs_err ' + ', '.join(errs))
-        if dtype != torch.bfloat16:
+              f'columns={n_pad}, {dname}, rtol {rtol}; {routes}): '
+              f'max_abs_err ' + ', '.join(errs)
+              + f'; two launches of each bitwise equal: {same}')
+        if not same:
+            raise SystemExit(f'two K2/K3 launches differ (N={N}, L={Ln})')
+        if plan['fwd']['route'] != 'tile':
             continue
-        H = bias.shape[1]
-        pairs = N * H * Ln * Ln
-        bounds = {
-            'fwd': _bound(4 * pairs * 64, _nbytes(qa, ka, vvp, bias, *got)),
-            'bwd': _bound(8 * pairs * 64,
-                          _nbytes(qa, ka, vvp, alphas, dout, dalphas,
-                                  *got_b))}
-        for key, kern, plain in (
-                ('fwd', fwd, lambda: ia.ipa_attention_fwd_reference(
-                    qa, ka, vvp, bias, reps)),
-                ('bwd', bwd, lambda: ia.ipa_attention_bwd_reference(
-                    qa, ka, vvp, alphas, dout, dalphas))):
-            k_ms = _cuda_ms(kern, 50)
-            p_ms = _cuda_ms(plain, 10)
-            k_ms2 = _cuda_ms(kern, 50)
-            res[key].update(ms=min(k_ms, k_ms2), plain_ms=p_ms,
-                            bound_ms=bounds[key][0], bound_by=bounds[key][1])
-            print(f'K{2 if key == "fwd" else 3} ms at N={N}, L={Ln}, H={H}, '
-                  f'bf16: kernel {k_ms:.4f} / {k_ms2:.4f}, plain '
-                  f'{p_ms:.4f}, bound {bounds[key][0]:.4f} '
-                  f'({bounds[key][1]})')
+        v1 = av.attention_v1(qa, ka, vvp, bias, reps)
+        torch.cuda.synchronize()
+        s1_eq = all(torch.equal(a, b) for a, b in zip(got, v1))
+        print(f'  K2 out and alphas bitwise equal to S1 v1: {s1_eq}')
+        if not s1_eq:
+            raise SystemExit(f'K2 disagrees with S1 v1 (N={N}, L={Ln})')
+        if timed is None:
+            timed = (N, Ln, reps, H, plan, qa, ka, vvp, bias, dout, dalphas,
+                     got, got_b)
+
+    # The tile route against the CUDA-core kernels on the same bf16
+    # operands: eager calls (the tile through the wrapper, as the training
+    # step calls it) and CUDA graphs of the same calls (device time alone:
+    # an eager call of a kernel shorter than its host cost is host-paced).
+    N, Ln, reps, H, plan, qa, ka, vvp, bias, dout, dalphas, got, got_b = timed
+    alphas = got[1]
+    cores = ia.attention_plan(torch.float32, N, Ln, H, reps)
+    pairs = N * H * Ln * Ln
+    bounds = {
+        'fwd': _bound(4 * pairs * 64, _nbytes(qa, ka, vvp, bias, *got)),
+        'bwd': _bound(8 * pairs * 64,
+                      _nbytes(qa, ka, vvp, alphas, dout, dalphas, *got_b))}
+    variants = {
+        'fwd': {'tile': lambda: ia.ipa_attention_fwd(qa, ka, vvp, bias, reps),
+                'CUDA cores': lambda: ia.fwd_on_route(qa, ka, vvp, bias, reps,
+                                                      cores['fwd'])},
+        'bwd': {'tile (one launch)': lambda: ia.ipa_attention_bwd(
+                    qa, ka, vvp, alphas, dout, dalphas),
+                'CUDA cores (two launches)': lambda: ia.bwd_on_route(
+                    qa, ka, vvp, alphas, dout, dalphas, cores['bwd'])}}
+    eager = {k: _rounds(v, ATTN_ROUNDS, ATTN_ITERS)
+             for k, v in variants.items()}
+    graph = {k: _graph_rounds(v, ATTN_ROUNDS, ATTN_ITERS)
+             for k, v in variants.items()}
+    plain = {'fwd': lambda: ia.ipa_attention_fwd_reference(qa, ka, vvp, bias,
+                                                           reps),
+             'bwd': lambda: ia.ipa_attention_bwd_reference(
+                 qa, ka, vvp, alphas, dout, dalphas)}
+    for key, k in (('fwd', 2), ('bwd', 3)):
+        p_ms = _cuda_ms(plain[key], 10)
+        name = next(iter(variants[key]))
+        res[key].update(ms=eager[key][name], device_ms=graph[key][name],
+                        plain_ms=p_ms, bound_ms=bounds[key][0],
+                        bound_by=bounds[key][1])
+        show = lambda t: ', '.join(f'{n} {v:.4f}' for n, v in t.items())
+        print(f'K{k} ms at N={N}, L={Ln}, H={H}, bf16 (medians of '
+              f'{ATTN_ROUNDS} alternated rounds of {ATTN_ITERS} calls): '
+              f'eager per call {show(eager[key])}; device time (CUDA graphs) '
+              f'{show(graph[key])}; plain {p_ms:.4f}, bound '
+              f'{bounds[key][0]:.4f} ({bounds[key][1]})')
+    # One K3 call on the tile route is one kernel: in a process of its own
+    # (phase 3's profiler session leaves later ones here without device
+    # events).
+    child = subprocess.run(
+        [sys.executable, '-m', 'ab_opt_tpu_torch.utils.profile_train',
+         '--k3-launches'], capture_output=True, text=True, check=True)
+    launched = json.loads(child.stdout.strip().splitlines()[-1])
+    print(f'K3 one call on the tile route (N={TRAIN_BATCH}, L={L}, H=12, '
+          f'bf16) under torch.profiler: {launched}')
+    if sum(n for _, n in launched) != 1 or 'k3_tile_kernel' not in launched[0][0]:
+        raise SystemExit('a K3 call on the tile route is not exactly one '
+                         'device kernel')
+    print(f'phase 4: {time.perf_counter() - t0:.2f} s')
     return res
 
 
@@ -736,8 +829,10 @@ def phase_train(device):
           f'{layers} layers through Trainer.train: {seconds:.3f} s with the '
           f'final save, one save alone {save_s:.3f} s; without it '
           f'{step_s * 1e3:.3f} ms/step, {TRAIN_BATCH / step_s:.3f} samples/s')
-    print(f'train: K2 launches {launches[0]}, K3 launches {launches[1]}, '
-          f'plain calls {plain[0]} + {plain[1]}')
+    routes = ia.attention_plan(torch.bfloat16, TRAIN_BATCH, L, 12)
+    print(f'train: K2 launches {launches[0]} ({routes["fwd"]["route"]} '
+          f'route), K3 launches {launches[1]} ({routes["bwd"]["route"]} '
+          f'route), plain calls {plain[0]} + {plain[1]}')
     if not (steps == TIMED_STEPS
             and launches == (layers * steps, layers * steps)
             and plain == (0, 0)):
@@ -776,8 +871,37 @@ def _rounds(calls, rounds, iters):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+def _graph_rounds(calls, rounds, iters):
+    """Median device ms per call of each entry of ``calls`` ({name: fn}):
+    each fn is warmed on a side stream, then captured ``iters`` times into
+    one CUDA graph, and the graphs are replayed in ``rounds`` rounds, the
+    order reversed every other round. The host's cost of a call (checks,
+    allocation, the launch) drops out, which paces eager calls of kernels
+    shorter than it."""
+    import statistics
+    import torch
+    graphs = {}
+    side = torch.cuda.Stream()
+    for name, fn in calls.items():
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graphs[name] = graph
+    times = {k: [] for k in calls}
+    order = list(calls)
+    for r in range(rounds):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            times[k].append(_cuda_ms(graphs[k].replay, 1) / iters)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def _k4_gate(a, b, dtype):
-    """K4's gates: bf16 within ATTN_BF16_RTOL of |plain| plus
+    """K2's, K3's and K4's gates: bf16 within ATTN_BF16_RTOL of |plain| plus
     ATTN_BF16_ATOL_FRAC of the plain tensor's largest value, f32 within
     ATTN_F32_TOL. Returns (max_abs_err, atol, ok)."""
     import torch
@@ -823,15 +947,15 @@ def phase_p2n(device):
     print('K4 plan: the wrapper\'s plan is the source\'s at L=16..256 (tile '
           'route) and L=16..512 (CUDA-core route)')
     timed = None
-    for N, Ln, reps, dname, n_pad in P2N_CASES:
+    for N, Ln, reps, dname, n_pad, *heads_cz in P2N_CASES:
         dtype = getattr(torch, dname)
+        H, Cz = heads_cz or (12, 64)
         qa, ka, vvp, bias, _, _ = _attention_case(
-            N, Ln, reps, dtype, n_pad, seed=N + Ln + 1, device=device)
+            N, Ln, reps, dtype, n_pad, seed=N + Ln + 1, device=device, H=H)
         g = torch.Generator(device=device).manual_seed(N + Ln)
-        z = torch.randn(N // reps, Ln, Ln, 64, generator=g,
+        z = torch.randn(N // reps, Ln, Ln, Cz, generator=g,
                         device=device).to(dtype).contiguous()
-        H = bias.shape[1]
-        plan = ia.fwd_p2n_plan(dtype, N, Ln, H, 64, reps, sms)
+        plan = ia.fwd_p2n_plan(dtype, N, Ln, H, Cz, reps, sms)
         got = ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps)
         again = ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps)
         torch.cuda.synchronize()
@@ -851,8 +975,9 @@ def phase_p2n(device):
             else f' ({plan["query_rows"]} query rows a block)')
         grids = ', '.join(f'{la["name"]} grid {la["grid"]} x {la["threads"]}'
                           f', {la["smem"]} B' for la in plan['launches'])
-        print(f'K4 vs plain (N={N}, reps={reps}, L={Ln}, padded key columns='
-              f'{n_pad}, {str(dtype)[6:]}, route {route}: {grids}): '
+        print(f'K4 vs plain (N={N}, reps={reps}, L={Ln}, H={H}, Cz={Cz}, '
+              f'padded key columns={n_pad}, {str(dtype)[6:]}, route {route}: '
+              f'{grids}): '
               f'max_abs_err ' + ', '.join(errs) + f'; two launches bitwise '
               f'equal: {same}')
         if not same:
@@ -1369,7 +1494,8 @@ def main():
     for src, res in build.build_all().items():
         print(f'build: {Path(src).name} {res["seconds"]:.2f} s -> {res["path"]}')
         for line in res['log'].splitlines():
-            if 'registers' in line or 'Compiling' in line:
+            spills = 'spill' in line and ' 0 bytes spill stores' not in line
+            if 'registers' in line or 'Compiling' in line or spills:
                 print(f'  {line.strip()}')
     print(f'build: {time.perf_counter() - t0:.2f} s for all sources')
 

@@ -195,6 +195,131 @@ def test_cuda_tensors_never_reach_the_plain_attention():
     assert bias.grad.shape == bias.shape
 
 
+def _gate(name, a, b, dtype):
+    """K2/K3's gates: atol/rtol 1e-3 in float32; in bf16 rtol 1e-2 and atol
+    1e-3 of the plain tensor's largest value."""
+    assert a.dtype == dtype and a.shape == b.shape, name
+    assert torch.isfinite(a).all(), name
+    b = b.float()
+    if dtype == torch.float32:
+        atol = rtol = 1e-3
+    else:
+        atol, rtol = 1e-3 * float(b.abs().max()), 1e-2
+    torch.testing.assert_close(a.float(), b, atol=atol, rtol=rtol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('L', [16, 48, 128, 256, 512])
+def test_attention_routes_match_plain_on_card(L, dtype):
+    """K2 and K3 on the route attention_plan names (bf16 up to L=256: the
+    tiles, K3 one launch of a cluster; float32 and L=512: the CUDA cores),
+    reps 2, 5 padded key columns: out and alphas, then dqa, dka, dvvp and
+    the per-trajectory dbias from the kernel's alphas, against the plain
+    versions (K2/K3's gates); through IPAAttention the same gradients, dbias
+    summed over the replicas; each kernel launched twice, bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    Nc, reps, H = 2, 2, 12
+    qa, ka, vvp, bias, dout, dalphas = _attention_case(
+        L, Nc, reps, dtype, torch.device('cuda'), seed=L + 1)
+    plan = ia.attention_plan(dtype, Nc * reps, L, H, reps)
+    assert plan['fwd']['route'] == plan['bwd']['route'] == (
+        'tile' if dtype == torch.bfloat16 and L <= 256 else 'cuda_cores')
+    ia.reset_counts()
+    with torch.no_grad():
+        fwd = [ia.ipa_attention_fwd(qa, ka, vvp, bias, reps) for _ in range(2)]
+        bwd = [ia.ipa_attention_bwd(qa, ka, vvp, fwd[0][1], dout, dalphas)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        ref = ia.ipa_attention_fwd_reference(qa, ka, vvp, bias, reps)
+        ref += ia.ipa_attention_bwd_reference(qa, ka, vvp, fwd[0][1], dout,
+                                              dalphas)
+    assert (ia.ipa_attention_fwd.launches, ia.ipa_attention_bwd.launches) == (2, 2)
+    names = ('out', 'alphas', 'dqa', 'dka', 'dvvp', 'dbias')
+    for name, a, again, b in zip(names, fwd[0] + bwd[0], fwd[1] + bwd[1], ref):
+        _gate(name, a, b, dtype)
+        assert torch.equal(a, again), name
+    leaves = [a.clone().requires_grad_() for a in (qa, ka, vvp, bias)]
+    out, alphas = ia.ipa_attention(*leaves, reps=reps)
+    torch.autograd.backward((out, alphas), (dout, dalphas))
+    torch.cuda.synchronize()
+    assert ia.ipa_attention_fwd_reference.calls == 1
+    assert ia.ipa_attention_bwd_reference.calls == 1
+    assert torch.equal(out, fwd[0][0]) and torch.equal(alphas, fwd[0][1])
+    for leaf, want in zip(leaves[:3], bwd[0][:3]):
+        assert torch.equal(leaf.grad, want)
+    assert torch.equal(leaves[3].grad,
+                       bwd[0][3].reshape(Nc, reps, H, L, L).sum(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L', [16, 48, 128, 144, 256])
+@pytest.mark.parametrize('reps', [1, 3, 4])
+def test_k2_tile_is_s1_v1_bitwise_on_card(L, reps):
+    """K2's tile (64 query rows a block) computes out and alphas bit for bit
+    as S1 v1 (128 query rows a block up to L=128) on the same operands: a
+    plan changes no warp's sums."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import attention_variants as av
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    Nc = 2 if reps < 4 else 1
+    qa, ka, vvp, bias, _, _ = _attention_case(L, Nc, reps, torch.bfloat16,
+                                              torch.device('cuda'),
+                                              seed=L + reps)
+    with torch.no_grad():
+        want = av.attention_v1(qa, ka, vvp, bias, reps)
+        got = ia.ipa_attention_fwd(qa, ka, vvp, bias, reps)
+        torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_attention_plan_is_the_sources_on_card():
+    """attention_plan's routes, grids, threads, clusters and shared memory
+    are the source's own at every L for both types, H 4-20 and reps
+    1-256."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    for dtype in (torch.float32, torch.bfloat16):
+        for L in range(16, ia.MAX_L + 1, 16):
+            for H, reps in ((4, 1), (12, 2), (6, 3), (20, 4), (12, 256)):
+                N = 4 * reps
+                want = ia.plan_launches(ia.attention_plan(dtype, N, L, H, reps))
+                got = ia.source_attention_plan(N, L, H, reps, dtype)
+                assert got == want, (dtype, L, H, reps)
+
+
+@pytest.mark.cuda
+def test_p2n_odd_heads_and_width_match_plain_on_card():
+    """K4 in bf16 at H=6, Cz=32 (L=128, reps 2, 5 padded key columns), a
+    shape the tile does not take, runs on the CUDA-core route and meets the
+    bf16 gate against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    dev = torch.device('cuda')
+    qa, ka, vvp, bias, _, _ = _attention_case(128, 1, 2, torch.bfloat16, dev,
+                                              H=6, seed=6)
+    g = torch.Generator().manual_seed(32)
+    z = torch.randn(1, 128, 128, 32, generator=g).to(dev, torch.bfloat16)
+    assert ia.fwd_p2n_plan(torch.bfloat16, 2, 128, 6, 32, 2)['route'] == (
+        'cuda_cores')
+    ia.reset_counts()
+    with torch.no_grad():
+        got = ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, 2)
+        torch.cuda.synchronize()
+        ref = ia.ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z, 2)
+    assert ia.ipa_attention_fwd_p2n.launches == 1
+    assert ia.ipa_attention_fwd_p2n_reference.calls == 1
+    for name, a, b in zip(('out', 'p2n'), got, ref):
+        _gate(name, a, b, torch.bfloat16)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('L,Nc,reps', [(16, 2, 1), (48, 1, 3), (128, 2, 2),
@@ -293,9 +418,9 @@ def test_p2n_plan_is_the_sources_on_card():
     dev = torch.device('cuda')
     qa, ka, vvp, bias, _, _ = _attention_case(128, 1, 2, torch.bfloat16, dev)
     ia.reset_counts()
-    with pytest.raises(ValueError, match='Cz=16'):
+    with pytest.raises(ValueError, match='Cz=80'):
         ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, torch.zeros(
-            1, 128, 128, 16, dtype=torch.bfloat16, device=dev), 2)
+            1, 128, 128, 80, dtype=torch.bfloat16, device=dev), 2)
     assert ia.ipa_attention_fwd_p2n.launches == 0
 
 

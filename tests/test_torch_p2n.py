@@ -149,17 +149,19 @@ def test_cpu_tensors_take_the_plain_version():
     (torch.bfloat16, 272, 12, 64, 'cuda_cores'),
     (torch.bfloat16, 512, 12, 16, 'cuda_cores'),
     (torch.float32, 128, 12, 64, 'cuda_cores'),
-    (torch.float32, 48, 12, 16, 'cuda_cores')])
+    (torch.float32, 48, 12, 16, 'cuda_cores'),
+    (torch.bfloat16, 128, 12, 16, 'cuda_cores'),
+    (torch.bfloat16, 256, 6, 64, 'cuda_cores')])
 def test_plan_route(dtype, L, heads, Cz, route):
     """bf16 up to L=256 with Cz=64 and a multiple of 4 heads takes K1's
-    attention tile; float32 and bf16 past L=256 the CUDA-core tiles."""
+    attention tile; float32, bf16 past L=256, and bf16 with another Cz or
+    H (as JAX's kernel takes any) the CUDA-core tiles."""
     plan = ia.fwd_p2n_plan(dtype, 8, L, heads, Cz, 4)
     assert plan['route'] == route
     assert all(launch['smem'] <= ia.SMEM_BLOCK for launch in plan['launches'])
 
 
 @pytest.mark.parametrize('dtype,L,heads,Cz,match', [
-    (torch.bfloat16, 128, 12, 16, 'Cz=16'), (torch.bfloat16, 256, 6, 64, 'H=6'),
     (torch.float32, 128, 20, 64, 'H=20'), (torch.float16, 128, 12, 64, 'dtype'),
     (torch.bfloat16, 136, 12, 64, 'L=136'), (torch.float32, 528, 12, 64,
                                              'L=528')])

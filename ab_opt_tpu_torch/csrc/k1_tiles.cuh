@@ -13,7 +13,8 @@
 //   k1_attn_tile<P,A> the replica-group attention: (query tile, head, rt
 //                     replicas of one complex); mma.sync logits, softmax and
 //                     alpha . V in registers (P::QW warps); alpha out in K1's
-//                     layout, K2's or not at all (A: AlphaOut)
+//                     layout, K2's, the block's shared memory or not at all
+//                     (A: AlphaOut), a per-warp hook after each replica
 //   p2n_tile<NTH>     16 NTH / 32 alpha rows of one (query row, complex)
 //                     times z[c, i] into the feature rows (NTH threads)
 //   p2n_stage/p2n_mma the same product on 128 alpha rows staged by cp.async
@@ -525,9 +526,18 @@ static_assert(AttnLarge::smem(256) <= 232448, "K1's attention plan exceeds sm_90
 static_assert(AttnWide::smem(256) <= 232448, "K5's attention plan exceeds sm_90 at L=256");
 
 // Where the tile's alpha goes: K1's (Nc, L, reps*H, L) layout (the rows
-// p2n reads), K2's (N, H, L, L) layout (S1's v1), or nowhere (S1's v3): the
-// 16-byte alpha stores then compile away. o is the same in all three.
-enum AlphaOut { ALPHA_K1 = 0, ALPHA_K2 = 1, ALPHA_NONE = 2 };
+// p2n reads), K2's (N, H, L, L) layout (S1's v1), nowhere (S1's v3: the
+// 16-byte alpha stores then compile away), or the block's shared memory
+// (S3: `alpha` is then a shared-memory base, the tile's query row q at row
+// q, rows L apart, each replica's rows in place of the last, for the hook
+// to take). o is the same in all four.
+enum AlphaOut { ALPHA_K1 = 0, ALPHA_K2 = 1, ALPHA_NONE = 2, ALPHA_SMEM = 3 };
+
+// k1_attn_tile's hook, called by each warp as hook(r, wrow, lane) once its
+// 16 rows (from wrow) of replica r are done; by default nothing.
+struct NoHook {
+  __device__ __forceinline__ void operator()(int, int, int) const {}
+};
 
 // One warp's 16 query rows of one replica: logits, softmax, alpha (to arow,
 // rows a_ld apart, in device or shared memory; none without STORE_ALPHA),
@@ -670,15 +680,17 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
 }
 
 // The tile (i0, h, n0 .. n0 + rt - 1) on Plan::QW * 32 threads; bias_ch is
-// the (L, L) pair bias of (complex, head); alpha in the layout AO names.
-template <class Plan, AlphaOut AO = ALPHA_K1>
+// the (L, L) pair bias of (complex, head); alpha in the layout AO names;
+// `hook` runs in each warp after each replica.
+template <class Plan, AlphaOut AO = ALPHA_K1, class Hook = NoHook>
 __device__ __forceinline__ void k1_attn_tile(int i0, int h, int n0, int rt,
                                              const bf16* __restrict__ qa,
                                              const bf16* __restrict__ ka,
                                              const bf16* __restrict__ vv,
                                              const bf16* __restrict__ bias_ch,
                                              bf16* __restrict__ o, bf16* __restrict__ alpha,
-                                             int L, int H, int reps, unsigned char* smraw) {
+                                             int L, int H, int reps, unsigned char* smraw,
+                                             Hook hook = Hook()) {
   constexpr int QT = Plan::QT, NTH = Plan::QW * 32, NS = Plan::NS;
   const int BLD = L + 8;
   bf16* Bs = reinterpret_cast<bf16*>(smraw);
@@ -739,10 +751,14 @@ __device__ __forceinline__ void k1_attn_tile(int i0, int h, int n0, int rt,
       } else if constexpr (AO == ALPHA_K2) {
         arow = alpha + (((size_t)n * H + h) * L + i_first) * L;
         a_ld = L;
+      } else if constexpr (AO == ALPHA_SMEM) {
+        arow = alpha + (size_t)wrow * L;
+        a_ld = L;
       }
       k1_attn_warp<Plan::KMAX, AO != ALPHA_NONE>(
           Ks, Vs, Qs + wrow * KLD, Bs + wrow * BLD, BLD, L, i_first,
           o + ((size_t)n * L + i_first) * HD + h * SLOT, (size_t)HD, arow, a_ld, lane);
+      hook(r, wrow, lane);
     }
     __syncthreads();
   }

@@ -17,19 +17,27 @@ be timed against each other (``utils/micro_attention.py``).
 Operands are K2's, in the JAX layout: ``qa``, ``ka``, ``vvp`` (N, L, H*64),
 ``bias`` (N // reps, H, L, L); S3 also takes ``z`` (N // reps, L, L, Cz).
 
-S1 runs K1's replica-group attention tile (``csrc/k1_tiles.cuh``, the tile
-of K1's attention launch, :func:`.gablock.gablock_attention`) with alpha in
-K2's (N, H, L, L) layout (v1) or not stored at all (v3), in blocks of
-:func:`.gablock.attention_replicas` replicas.
+* S1 runs K1's replica-group attention tile (``csrc/k1_tiles.cuh``, the tile
+  of K1's attention launch, :func:`.gablock.gablock_attention`) with alpha
+  in K2's (N, H, L, L) layout (v1) or not stored at all (v3), in blocks of
+  :func:`.gablock.attention_replicas` replicas.
+* S2 walks every head in one block of 64 query rows and ``rt`` replicas:
+  a producer warpgroup feeds the heads by TMA, two consumer warpgroups compute
+  on ``wgmma`` (:func:`v2_plan`).
+* S3 is K4's function in one launch: K1's attention tile pushes each
+  alpha row, over distributed shared memory, to the block of its
+  thread-block cluster that owns its query row, and that block multiplies
+  the cluster's rows by z[c, i] (:func:`v4_plan`); alpha never reaches
+  device memory, and o and p2n are K4's
+  (:func:`.ipa_attention.ipa_attention_fwd_p2n`, tile route) bit for bit.
 
 Every wrapper refuses an input that requires a gradient (the variants have
 no backward), takes the plain version for a CPU ``qa``, and on any other
 device launches its kernel or raises; nothing falls back. The card kernels
-take bfloat16 only (the script runs them only in bf16), L a multiple of 16
-up to the cap that their shared-memory plan allows (:func:`max_length`: 256
-for S1, as K1 takes it; 128 for S3 and 192 for S2 at 12 heads).
-``launches[name]`` counts the kernel launches of ``'v1'``, ``'v3'``,
-``'v2'`` and ``'v4'``.
+take bfloat16 only (the script runs them only in bf16) and L a multiple of
+16 up to :data:`MAX_L` (256); S3 also Cz a multiple of 16 up to 64 and H
+up to 16. ``launches[name]`` counts the kernel launches of ``'v1'``,
+``'v3'``, ``'v2'`` and ``'v4'``: one a call each.
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ from . import ipa_attention as ia
 from .gablock import attention_replicas
 
 SLOT = ia.SLOT
-TILE = 16                  # query rows a block
+MAX_L = 256                # every variant takes L a multiple of 16 up to 256
 SMEM_BLOCK = 232448        # shared memory a block may have on sm_90
 _SRC = build.CSRC_DIR / 'attention_variants.cu'
 
@@ -59,12 +67,10 @@ def reset_counts():
     ia.ipa_attention_fwd_p2n_reference.calls = 0
 
 
-# ------------------------------------------------------ shared-memory plans
-# The same arithmetic as attention_tile_smem(), phased_smem() and
-# head_batched_smem() in the source; a card test and chip_smoke.py phase 11
-# hold the two against each other.
-
-TILE_MAX_L = 256           # S1: K1's attention tile takes L up to 256
+# --------------------------------------------------------------- the plans
+# The same arithmetic as attention_tile_smem(), s3_plan() and s2_plan() in
+# the source; a card test and chip_smoke.py phase 11 hold the two against
+# each other.
 
 
 def tile_smem(L: int) -> int:
@@ -73,34 +79,86 @@ def tile_smem(L: int) -> int:
     return ia._attn_plan(L)[3]
 
 
-def _s_ld(L):
-    return max(L, SLOT) + 4
+S3_MAX_CLUSTER = 8         # blocks of an S3 cluster, at most (portable)
+_S3_Z_STAGES = 3           # z[c, i] buffers of the p2n ring
+_S3_OLD = 24               # pitch of a warp's 16 x 16 p2n staging tile
 
 
-def phased_smem(L: int, H: int) -> int:
-    """Bytes of shared memory a block of S3 takes: the query rows, two
-    heads' K or V, every head's f32 logits and the bf16 alphas."""
-    s_floats = max(H * TILE * _s_ld(L), 2048)
-    a_rows = (TILE - 1) * H + max(H, 16)
-    return (TILE * (H * SLOT + 8) * 2 + 2 * L * (SLOT + 8) * 2
-            + s_floats * 4 + a_rows * (L + 16) * 2)
+def v4_plan(N: int, L: int, H: int, Cz: int, reps: int) -> dict:
+    """S3's launch at these shapes: K1's attention tile with 64 query rows,
+    128 threads and one stage over ``rt`` replicas (the larger of 2, 1
+    dividing reps whose block fits). The ``cluster`` (1, cy, cz) joins cz
+    replica groups (the largest divisor of reps / rt up to 8) of cy heads
+    (the largest divisor of H with cy cz <= 8): ``rows_per_z`` = cy cz rt
+    alpha rows share each z[c, i]. A block holds the gathered alpha rows of
+    the query rows it owns (ceil(64 / (cy cz)) of them, ``rows_per_z`` rows
+    of L + 8 each, and 16 - ``rows_per_z`` more to end the last 16-row
+    tile), one replica's alpha (64 rows of L) and a work region for first
+    the attention's bias rows and stage, then three z[c, i] buffers and
+    each warp's 16 x 16 staging tile."""
+    qt, threads = 64, 128
+    attn = ia._tile_smem(L, qt, 1)
+    p2n = _S3_Z_STAGES * L * (Cz + 8) * 2 + threads // 32 * 16 * _S3_OLD * 2
+    for rt in (2, 1):
+        if reps % rt:
+            continue
+        cz = next(d for d in range(S3_MAX_CLUSTER, 0, -1)
+                  if (reps // rt) % d == 0)
+        cy = next(d for d in range(S3_MAX_CLUSTER // cz, 0, -1) if H % d == 0)
+        m = cy * cz * rt
+        g_rows = ia._cdiv(qt, cy * cz) * m + 16 - m
+        smem = g_rows * (L + 8) * 2 + qt * L * 2 + max(attn, p2n)
+        if smem <= SMEM_BLOCK:
+            return {'query_rows': qt, 'threads': threads, 'rt': rt,
+                    'cluster': (1, cy, cz), 'rows_per_z': m,
+                    'smem': smem, 'grid': (ia._cdiv(L, qt), H, N // rt)}
+    raise ValueError(f'attention_variants: no S3 block fits L={L}')
 
 
-def head_batched_smem(L: int, H: int) -> int:
-    """Bytes of shared memory a block of S2 takes: one warp a head (at most
-    16), each with its head's f32 logits and bf16 alphas."""
-    return min(H, 16) * (TILE * _s_ld(L) * 4 + TILE * (L + 16) * 2)
+def v4_p2n_writes(N: int, L: int, H: int, Cz: int, reps: int):
+    """Every p2n row S3 writes, as the kernel deals them: yields (cluster,
+    block, n, i, h), ``block`` its grid index (x, y, z) and ``cluster`` the
+    index of its cluster. Block rank p = dy + cy dz of a cluster owns its
+    query rows p, p + cy cz, ... of the tile and writes, for each, the
+    rows m = p' rt + r that every rank p' pushed into it (head y - y % cy
+    + p' % cy, trajectory (z - z % cz + p' // cy) rt + r)."""
+    plan = v4_plan(N, L, H, Cz, reps)
+    qt, rt = plan['query_rows'], plan['rt']
+    _, cy, cz = plan['cluster']
+    gx, gy, gz = plan['grid']
+    for x in range(gx):
+        for y in range(gy):
+            for zb in range(gz):
+                rank = y % cy + cy * (zb % cz)
+                hq, gq = y - y % cy, zb - zb % cz
+                for q in range(rank, qt, cy * cz):
+                    i = x * qt + q
+                    if i >= L:
+                        break
+                    for m in range(cy * cz * rt):
+                        pr = m // rt
+                        yield ((x, y // cy, zb // cz), (x, y, zb),
+                               (gq + pr // cy) * rt + m % rt, i,
+                               hq + pr % cy)
 
 
-def max_length(kind: str, H: int) -> int:
-    """The largest L (a multiple of 16) that the kind's block takes:
-    ``kind`` 'tile' (S1: K1's limit), 'phased' (S3) or 'head_batched' (S2:
-    the largest whose block fits in shared memory); 0 if none does."""
-    if kind == 'tile':
-        return TILE_MAX_L
-    smem = phased_smem if kind == 'phased' else head_batched_smem
-    return next((L for L in range(ia.MAX_L, 0, -TILE)
-                 if smem(L, H) <= SMEM_BLOCK), 0)
+_S2_BOX = 64 * 64 * 2      # one 64 x 64 bf16 TMA box
+
+
+def v2_plan(N: int, L: int, H: int, reps: int) -> dict:
+    """S2's launch at these shapes: a block of 384 threads (two consumer
+    warpgroups and the producer's) per (64 query rows, ``rt`` replicas),
+    ``rt`` 2 where reps is even, else 1; ``stages`` item stages [Q (64 x
+    64) | K | V (Lk x 64 each)], four where they fit, else two, beside two
+    bias stages (Lk / 64 boxes of 64 x 64), Lk = L rounded up to 64, 1024
+    bytes of alignment slack and 256 of mbarriers."""
+    lk = ia._cdiv(L, 64) * 64
+    stage = _S2_BOX + 2 * lk * 128
+    fixed = 1024 + 2 * (lk // 64) * _S2_BOX + 256
+    ns = 4 if fixed + 4 * stage <= SMEM_BLOCK else 2
+    rt = 2 if reps % 2 == 0 else 1
+    return {'rt': rt, 'stages': ns, 'smem': fixed + ns * stage,
+            'threads': 384, 'grid': (ia._cdiv(L, 64), N // rt)}
 
 
 # ------------------------------------------------------------ the kernels
@@ -110,21 +168,42 @@ def max_length(kind: str, H: int) -> int:
 def _library():
     lib = ctypes.CDLL(
         build.build_sources([_SRC], build.BUILD_DIR)[str(_SRC)]['path'])
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
     lib.attention_tile.argtypes = [P] * 6 + [I] * 5 + [P]
     lib.attention_tile.restype = I
-    lib.attention_phased.argtypes = [P] * 7 + [I] * 5 + [P]
-    lib.attention_phased.restype = I
+    lib.attention_v4.argtypes = [P] * 7 + [I] * 5 + [P]
+    lib.attention_v4.restype = I
+    lib.attention_v2.argtypes = [P] * 6 + [I] * 4 + [P]
+    lib.attention_v2.restype = I
     lib.attention_tile_smem.argtypes = [I]
     lib.attention_tile_smem.restype = ctypes.c_size_t
-    lib.attention_head_batched.argtypes = [P] * 6 + [I] * 4 + [P]
-    lib.attention_head_batched.restype = I
-    for fn in (lib.attention_phased_smem, lib.attention_head_batched_smem):
-        fn.argtypes = [I, I]
-        fn.restype = ctypes.c_size_t
+    lib.attention_v4_plan.argtypes = [I] * 4 + [LL]
+    lib.attention_v4_plan.restype = I
+    lib.attention_v2_plan.argtypes = [I, I, LL]
+    lib.attention_v2_plan.restype = I
     lib.attention_variants_error_string.argtypes = [I]
     lib.attention_variants_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def source_v4_plan(N: int, L: int, H: int, Cz: int, reps: int) -> dict:
+    """S3's plan as the source computes it (builds the library), in
+    :func:`v4_plan`'s form."""
+    out = (ctypes.c_longlong * 7)()
+    _raise_on(_library().attention_v4_plan(L, H, Cz, reps, out), 'S3 plan')
+    qt, threads, rt, cy, cz, m, smem = (int(v) for v in out)
+    return {'query_rows': qt, 'threads': threads, 'rt': rt,
+            'cluster': (1, cy, cz), 'rows_per_z': m, 'smem': smem,
+            'grid': (ia._cdiv(L, qt), H, N // rt)}
+
+
+def source_v2_plan(N: int, L: int, H: int, reps: int) -> dict:
+    """S2's plan as the source computes it, in :func:`v2_plan`'s form."""
+    out = (ctypes.c_longlong * 3)()
+    _raise_on(_library().attention_v2_plan(L, reps, out), 'S2 plan')
+    rt, ns, smem = (int(v) for v in out)
+    return {'rt': rt, 'stages': ns, 'smem': smem, 'threads': 384,
+            'grid': (ia._cdiv(L, 64), N // rt)}
 
 
 def _require(cond: bool, msg: str):
@@ -141,15 +220,14 @@ def _no_grad(named):
 
 def _check(named, reps: int, kind: str):
     """Raise on what the card kernels do not take: bf16 only and L up to
-    the kind's cap, then K2's shape, contiguity and device checks."""
+    MAX_L, then K2's shape, contiguity and device checks."""
     qa = named['qa']
     _require(qa.dtype == torch.bfloat16,
              f'dtype {qa.dtype}: the card kernels take bfloat16 only')
-    if qa.dim() == 3 and qa.shape[-1] % SLOT == 0 and qa.shape[-1] > 0:
-        L, H = qa.shape[1], qa.shape[-1] // SLOT
-        cap = max_length(kind, H)
-        _require(L <= cap, f'L={L} is past the cap L={cap} of the {kind} '
-                           f'kernel at H={H} (its shared-memory plan)')
+    if qa.dim() == 3:
+        L = qa.shape[1]
+        _require(L <= MAX_L, f'L={L} is past the cap L={MAX_L} of the '
+                             f'{kind} kernel')
     return ia._check(named, reps)
 
 
@@ -190,18 +268,19 @@ def attention_v1(qa, ka, vvp, bias, reps: int = 1, store_alphas: bool = True):
 
 
 def attention_v2(qa, ka, vvp, bias, reps: int = 1):
-    """S2: (out, alphas), K2's function with one warp a head and no
-    block-wide barrier; K and V fragments straight from global memory."""
+    """S2: (out, alphas), K2's function with every head walked in one block
+    of 64 query rows (:func:`v2_plan`): TMA-fed head stages, logits and
+    alpha . vvp by ``wgmma``."""
     named = {'qa': qa, 'ka': ka, 'vvp': vvp, 'bias': bias}
     _no_grad(named)
     if qa.device.type == 'cpu':
         return ia.ipa_attention_fwd_reference(qa, ka, vvp, bias, reps)
-    N, L, H = _check(named, reps, 'head_batched')
+    N, L, H = _check(named, reps, 'v2')
     lib = _library()
     with torch.cuda.device(qa.device):
         out = torch.empty_like(qa)
         alphas = torch.empty((N, H, L, L), dtype=qa.dtype, device=qa.device)
-        err = lib.attention_head_batched(
+        err = lib.attention_v2(
             qa.data_ptr(), ka.data_ptr(), vvp.data_ptr(), bias.data_ptr(),
             out.data_ptr(), alphas.data_ptr(), N, L, H, reps, _stream(qa))
     _raise_on(err, 'attention v2')
@@ -210,26 +289,25 @@ def attention_v2(qa, ka, vvp, bias, reps: int = 1):
 
 
 def attention_v4(qa, ka, vvp, bias, z, reps: int = 1):
-    """S3: (out, p2n), K4's function, phase-separated in one block of 16
-    query rows: every head's logits, one softmax pass, every head's alpha .
-    vvp, then p2n[n, i, h] = sum_j alpha[n, h, i, j] z[n // reps, i, j] from
-    the alphas in shared memory."""
+    """S3: (out, p2n), K4's function in one launch with no alpha in device
+    memory (:func:`v4_plan`): p2n[n, i, h] = sum_j alpha[n, h, i, j]
+    z[n // reps, i, j], the alpha rows of query row i collected in one
+    block of a cluster, which reads z[n // reps, i] once."""
     named = {'qa': qa, 'ka': ka, 'vvp': vvp, 'bias': bias, 'z': z}
     _no_grad(named)
     if qa.device.type == 'cpu':
         return ia.ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z, reps)
     H, Cz = qa.shape[-1] // SLOT, z.shape[-1]
-    # One 16 x 16 tile holds every head of a query.
     _require(H <= ia.P2N_MAX_HEADS,
              f'H={H} (at most {ia.P2N_MAX_HEADS} heads)')
     _require(Cz % 16 == 0 and 16 <= Cz <= SLOT,
              f'Cz={Cz} (a multiple of 16, at most {SLOT})')
-    N, L, H = _check(named, reps, 'phased')
+    N, L, H = _check(named, reps, 'v4')
     lib = _library()
     with torch.cuda.device(qa.device):
         out = torch.empty_like(qa)
         p2n = torch.empty((N, L, H, Cz), dtype=qa.dtype, device=qa.device)
-        err = lib.attention_phased(
+        err = lib.attention_v4(
             qa.data_ptr(), ka.data_ptr(), vvp.data_ptr(), bias.data_ptr(),
             z.data_ptr(), out.data_ptr(), p2n.data_ptr(), N, L, H, Cz, reps,
             _stream(qa))

@@ -6,9 +6,10 @@ random operands) it prints ms per call, from CUDA events around ``iters``
 calls after one warm-up, of
 
 * v0, K2 (``ipa_attention_fwd``: in bf16 K1's tile, alphas out);
-* v1 (K1's attention tile, alphas out in K2's layout), v2 (one warp a
-  head, alphas out), v3 (v1 without the alphas) and v4 (phase-separated,
-  p2n in the kernel);
+* v1 (K1's attention tile, alphas out in K2's layout), v2 (every head in
+  one block: TMA-fed, warp-specialised wgmma; alphas out), v3 (v1 without
+  the alphas) and v4 (K4's function in one launch: K1's tile with alpha in
+  shared memory, p2n across a cluster);
 * K4 (``ipa_attention_fwd_p2n``), the production kernel of v4's function;
 * the p2n einsum over K2's alphas (``ipa_attention.p2n_aggregate``, the
   script's "XLA p2n" line);
@@ -20,10 +21,17 @@ It first prints the card's name and power limit. Run from the repository
 root on a machine with an NVIDIA GPU:
 
     python -m ab_opt_tpu_torch.utils.micro_attention
+
+``--launches`` prints instead, as one JSON line, the device kernels of one
+v4 call and of one v2 call at that shape under ``torch.profiler`` (a
+profiler session after another in one process may record no device
+events, so callers run it in a process of its own).
 """
 from __future__ import annotations
 
+import json
 import subprocess
+import sys
 
 REPS, LENGTH, HEADS, CZ, ITERS = 256, 128, 12, 64, 20
 
@@ -102,18 +110,50 @@ def time_variants(qa, ka, vvp, bias, z, reps, iters=ITERS):
 LABELS = {
     'v0': 'v0 K2 (ipa_attention_fwd, alphas out)',
     'v1': 'v1 K1 tile (alphas out)',
-    'v2': 'v2 heads batched (alphas out)',
+    'v2': 'v2 head loop, TMA + wgmma (alphas out)',
     'v3': 'v3 K1 tile, no alphas store',
-    'v4': 'v4 phase-separated + in-kernel p2n',
+    'v4': 'v4 K1 tile + cluster p2n, one launch',
     'k4': 'K4 (ipa_attention_fwd_p2n)',
     'p2n_einsum': 'p2n einsum (alphas read from HBM)',
     'sdpa': 'scaled_dot_product_attention (v3 out)'}
+
+
+def variant_launches(ops, reps):
+    """The device kernels of one v4 call and one v2 call on these CUDA
+    operands, each after a warm-up call: {'v4': [(name, count), ...],
+    'v2': [...]}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops import attention_variants as av
+    qa, ka, vvp, bias, z = ops
+    calls = {'v4': lambda: av.attention_v4(qa, ka, vvp, bias, z, reps),
+             'v2': lambda: av.attention_v2(qa, ka, vvp, bias, reps)}
+    found = {}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        found[name] = [(e.key, e.count) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, 'is_user_annotation', False)]
+    return found
 
 
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('micro_attention: needs a CUDA device')
+    if '--launches' in sys.argv[1:]:
+        torch.set_grad_enabled(False)
+        ops = make_operands(REPS, REPS, LENGTH, HEADS, CZ,
+                            torch.device('cuda'))
+        print(json.dumps(variant_launches(ops, REPS)))
+        return
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip())

@@ -69,9 +69,9 @@ Phases, each fatal on failure:
      the tile does not take, under the bf16 gate; every case launched
      twice, bitwise equal, its route
      and launches printed; then at the first case K4 against K1's two
-     launches (the same composition) and S3 (v4, the earlier design of K4's
-     function), medians of 4 order-alternated rounds, the plain time and
-     the bound;
+     launches (the same composition) and S3 (v4, K4's function in one
+     cluster launch), medians of 4 order-alternated rounds, the plain time
+     and the bound;
   8. the rest of BatchedSampler, on phase 5's model and complex: one
      denoiser evaluation of the ipa_impl='pallas' model (the eager encoder
      over K4) against the same evaluation through K4's plain version, then
@@ -100,16 +100,22 @@ Phases, each fatal on failure:
      and no plain call, finite outputs and the context residues unchanged;
      samples/s beside phase 5's K1-route numbers;
  11. the attention variants (S1 as v1 and v3 on K1's attention tile, S2 as
-     v2, S3 as v4) vs their plain versions (K2's and K4's) at (N=256,
-     reps=256, L=128) and (N=3, reps=3, L=48, 5 padded key columns), and S1
-     also at L=256 (N=8, reps=4, 3 padded key columns), bf16, each tensor
-     within K2's bf16 gate, v3's o bitwise equal to v1's; then the variants'
-     own path, the timing harness (utils/micro_attention.py) at the first
-     case with the counts zeroed before it: exactly one warm-up and
-     VARIANT_ITERS timed launches of each variant; the plain versions'
-     times, the bounds, and the library yardstick for v3
+     v2, the TMA-fed wgmma head loop, S3 as v4, K4's function in one
+     cluster launch) vs their plain versions (K2's and K4's) at (N=256,
+     reps=256, L=128), (N=3, reps=3, L=48, 5 padded key columns) and the
+     cap L=256 (N=8, reps=4, 3 padded key columns), bf16, each tensor
+     within K2's bf16 gate, v3's o bitwise equal to v1's, v2 and v4 each
+     called twice with bitwise-equal outputs, v4's o and p2n bitwise equal
+     to K4's (its tile route) and v2's max |d| against v1 printed; the
+     wrappers' S2 and S3 plans against the source's; one v4 and one v2
+     call under torch.profiler in a child process (one kernel each); then
+     the variants' own path, the timing harness (utils/micro_attention.py)
+     at the first case with the counts zeroed before it: exactly one
+     warm-up and VARIANT_ITERS timed launches of each variant; the plain
+     versions' times, the bounds, and the library yardstick for v3
      (scaled_dot_product_attention); then v3 and v1 against K1's attention
-     launch and SDPA on the same operands (medians of 4 alternated rounds);
+     launch and SDPA, v4 against K4, and v2 against v1 and K2, on the same
+     operands (medians of 4 alternated rounds each);
  12. the fused-GABlock variants (S4, in csrc/gablock.cu): v3 vs K1's
      plain version (and vs K1, printed) and each ablation mask (each flag
      with a counterpart, the floor) vs the plain version with the same
@@ -191,14 +197,13 @@ CHAIN_K1_TOL = 0.005
 K1_ABL_RATIO = 0.53
 # S1-S3 vs plain: (N, reps, L, padded key columns); the first is the
 # script's shape and is timed. L=48 shows a row-stride fault that L=128
-# hides.
-VARIANT_CASES = ((256, 256, L, 0), (3, 3, 48, 5))
+# hides; L=256 is every variant's cap (4 replicas of a complex, 3 padded key
+# columns). The first shape also times v3 and v1 against K1's attention
+# launch and SDPA, v4 against K4, and v2 against v1 and K2, each in
+# VARIANT_ROUNDS alternated rounds.
+VARIANT_CASES = ((256, 256, L, 0), (3, 3, 48, 5), (8, 4, 256, 3))
 VARIANT_ITERS = 20
-# S1 alone, on K1's attention tile: the cap L=256 (4 replicas a block, 3
-# padded key columns). The first VARIANT_CASES shape also times v3 and v1
-# against K1's attention launch and SDPA (S1_ROUNDS alternated rounds).
-S1_CASES = ((8, 4, 256, 3),)
-S1_ROUNDS = 4
+VARIANT_ROUNDS = 4
 # S4: (Nc, reps, rt, padded rows); the first is the script's point and is
 # timed, the second masks padded rows. Both hold v3 and every ablation mask.
 FUSED_CASES = ((1, 256, 4, 0), (2, 4, 2, 8))
@@ -1283,28 +1288,27 @@ def phase_variants(device):
     t0 = time.perf_counter()
     H, Cz = 12, 64
     lib = av._library()
-    for kind, c_smem, py_smem in (
-            ('phased', lib.attention_phased_smem, av.phased_smem),
-            ('head_batched', lib.attention_head_batched_smem,
-             av.head_batched_smem)):
-        cap = av.max_length(kind, H)
-        print(f'S1-S3 {kind} block at L={L}, H={H}: {c_smem(L, H)} bytes of '
-              f'shared memory (wrapper plan {py_smem(L, H)}); cap L={cap} '
-              f'({c_smem(cap, H)} bytes)')
-        if (c_smem(L, H), c_smem(cap, H)) != (py_smem(L, H), py_smem(cap, H)):
-            raise SystemExit(f'the {kind} wrapper plans shared memory unlike '
-                             'the kernel')
     for Ln in (16, 48, 128, 144, 256):
         if lib.attention_tile_smem(Ln) != av.tile_smem(Ln):
             raise SystemExit('the S1 wrapper plans shared memory unlike the '
                              'kernel')
+        for N, reps in ((256, 256), (3, 3), (8, 4), (2, 1)):
+            if (av.source_v4_plan(N, Ln, H, Cz, reps)
+                    != av.v4_plan(N, Ln, H, Cz, reps)
+                    or av.source_v2_plan(N, Ln, H, reps)
+                    != av.v2_plan(N, Ln, H, reps)):
+                raise SystemExit(f'the S2 or S3 wrapper plans unlike the '
+                                 f'kernel (N={N}, L={Ln})')
     print(f'S1 block (K1\'s attention tile) at L={L}: '
           f'{lib.attention_tile_smem(L)} bytes; cap L=256 '
           f'({lib.attention_tile_smem(256)} bytes)')
+    for Ln in (L, 256):
+        print(f'S3 plan at N=256, reps=256, L={Ln}, H={H}, Cz={Cz}: '
+              f'{av.v4_plan(256, Ln, H, Cz, 256)}; S2 plan: '
+              f'{av.v2_plan(256, Ln, H, 256)} (the source\'s)')
     res = {k: {'max_abs_err': 0.0} for k in ('v1', 'v3', 'v2', 'v4')}
     timed = None
-    for N, reps, Ln, n_pad in VARIANT_CASES + S1_CASES:
-        s1_only = (N, reps, Ln, n_pad) in S1_CASES
+    for N, reps, Ln, n_pad in VARIANT_CASES:
         ops = mh.make_operands(N, reps, Ln, H, Cz, device, seed=N + Ln + 2,
                                n_pad=n_pad)
         qa, ka, vvp, bias, z = ops
@@ -1323,8 +1327,6 @@ def phase_variants(device):
              ('out', 'p2n')))
         outputs = {}
         for name, kern, plain, names in cases:
-            if s1_only and name not in ('v1', 'v3'):
-                continue
             got = kern()
             torch.cuda.synchronize()
             errs = []
@@ -1335,16 +1337,45 @@ def phase_variants(device):
                 if not ok:
                     raise SystemExit(f'attention {name} {what} disagrees with '
                                      f'its plain version (N={N}, L={Ln})')
+            if name in ('v2', 'v4'):
+                again = kern()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise SystemExit(f'two {name} calls differ (N={N}, '
+                                     f'L={Ln})')
             outputs[name] = got
             print(f'{name} vs plain (N={N}, reps={reps}, L={Ln}, padded key '
                   f'columns={n_pad}, bf16, rtol {ATTN_BF16_RTOL}): '
-                  f'max_abs_err ' + ', '.join(errs))
+                  f'max_abs_err ' + ', '.join(errs)
+                  + ('; two calls bitwise equal' if name in ('v2', 'v4')
+                     else ''))
         # v3 is v1 with the alpha stores compiled away: the same o.
         if not torch.equal(outputs['v3'][0], outputs['v1'][0]):
             raise SystemExit(f'v3 o differs from v1 o (N={N}, L={Ln})')
-        print(f'v3 o bitwise equal to v1 o (N={N}, reps={reps}, L={Ln})')
+        # v4 runs K4's attention tile and p2n products: K4's bits.
+        k4_got = ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps)
+        if not all(torch.equal(a, b) for a, b in zip(outputs['v4'], k4_got)):
+            raise SystemExit(f'v4 differs from K4 (N={N}, L={Ln})')
+        d_v1 = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(outputs['v2'], outputs['v1'])]
+        print(f'v3 o bitwise equal to v1 o; v4 o and p2n bitwise equal to '
+              f'K4\'s (N={N}, reps={reps}, L={Ln}); v2 vs v1 max |d| out '
+              f'{d_v1[0]:.6f}, alphas {d_v1[1]:.6f}')
         if timed is None:
             timed = (N, reps, Ln, ops, outputs, k2, k4)
+
+    # One call of each of S3 and S2 is one kernel: in a process of its own
+    # (phase 3's profiler session leaves later ones here without device
+    # events).
+    child = subprocess.run(
+        [sys.executable, '-m', 'ab_opt_tpu_torch.utils.micro_attention',
+         '--launches'], capture_output=True, text=True, check=True)
+    launched = json.loads(child.stdout.strip().splitlines()[-1])
+    print(f'one call under torch.profiler (N=256, L={L}, H={H}): {launched}')
+    for name, kernel in (('v4', 's3_kernel'), ('v2', 's2_kernel')):
+        kernels = launched[name]
+        if sum(n for _, n in kernels) != 1 or kernel not in kernels[0][0]:
+            raise SystemExit(f'a {name} call is not exactly one device '
+                             'kernel')
 
     # The variants' own path: the harness, counts zeroed just before it.
     N, reps, Ln, ops, outputs, k2, k4 = timed
@@ -1378,20 +1409,36 @@ def phase_variants(device):
     if any(n != VARIANT_ITERS + 1 for n in counts.values()):
         raise SystemExit(f'the harness launched the variants {counts} times, '
                          f'not {VARIANT_ITERS + 1} each')
-    # S1 on K1's tile against K1's attention launch (the same tile with
-    # alpha in K1's layout) and the library, on the same operands.
+    # Each redesign against the kernels that compute its function, on the
+    # same operands: S1 against K1's attention launch (the same tile with
+    # alpha in K1's layout) and the library, S3 against K4, S2 against S1
+    # v1 and K2.
+    show = lambda t: ', '.join(f'{k} {v:.4f} ms' for k, v in t.items())
+    where = (f'N={N}, reps={reps}, L={Ln}, H={H} (medians of '
+             f'{VARIANT_ROUNDS} alternated rounds of {VARIANT_ITERS})')
     s1 = _rounds({
         'v3': lambda: av.attention_v1(qa, ka, vvp, bias, reps,
                                       store_alphas=False),
         'v1': lambda: av.attention_v1(qa, ka, vvp, bias, reps),
         'K1 attention': lambda: gb.gablock_attention(qa, ka, vvp, bias, reps),
-        'sdpa': sdpa}, S1_ROUNDS, VARIANT_ITERS)
-    print(f'S1 at N={N}, reps={reps}, L={Ln}, H={H} (medians of {S1_ROUNDS} '
-          f'alternated rounds of {VARIANT_ITERS}): ' + ', '.join(
-              f'{k} {v:.4f} ms' for k, v in s1.items())
-          + f'; v3 / sdpa {s1["v3"] / s1["sdpa"]:.3f}, v3 / K1 attention '
+        'sdpa': sdpa}, VARIANT_ROUNDS, VARIANT_ITERS)
+    print(f'S1 at {where}: {show(s1)}; v3 / sdpa '
+          f'{s1["v3"] / s1["sdpa"]:.3f}, v3 / K1 attention '
           f'{s1["v3"] / s1["K1 attention"]:.3f}, v1 / K1 attention '
           f'{s1["v1"] / s1["K1 attention"]:.3f}')
+    s3 = _rounds({
+        'v4': lambda: av.attention_v4(qa, ka, vvp, bias, z, reps),
+        'K4': lambda: ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps)},
+        VARIANT_ROUNDS, VARIANT_ITERS)
+    print(f'S3 at {where}: {show(s3)}; v4 / K4 {s3["v4"] / s3["K4"]:.3f}')
+    s2 = _rounds({
+        'v2': lambda: av.attention_v2(qa, ka, vvp, bias, reps),
+        'v1': lambda: av.attention_v1(qa, ka, vvp, bias, reps),
+        'v0 (K2)': lambda: ia.ipa_attention_fwd(qa, ka, vvp, bias, reps)},
+        VARIANT_ROUNDS, VARIANT_ITERS)
+    print(f'S2 at {where}: {show(s2)}; v2 / v1 {s2["v2"] / s2["v1"]:.3f}, '
+          f'v2 / v0 {s2["v2"] / s2["v0 (K2)"]:.3f}, v2 / bound '
+          f'{s2["v2"] / res["v2"]["bound_ms"]:.3f}')
     print(f'phase 11: {time.perf_counter() - t0:.2f} s')
     return res
 

@@ -9,12 +9,17 @@ against the JAX package, on the CPU:
   atol 1e-5, bf16 at atol/rtol 0.05; L 16 and 48; (Nc, reps) (2, 1) and
   (1, 3); 3 padded key columns;
 * the same at L=144 with reps 4 (a ragged query tile of K1's attention
-  tile, which S1 runs, and blocks of four replicas);
+  tile, which S1 and S3 run, and blocks of four replicas), and for S2 and
+  S3 at their cap L=256 (one trajectory, bf16);
+* the plans: S1's, S2's and S3's shared memory within a block's at every
+  L they take, and S3's cluster partition: every (n, i, h) of p2n written
+  once, each cluster's blocks on one complex and one query tile, each
+  block's rows gathered from its own cluster;
 * the wrappers: they refuse what the card kernels do not take (a dtype
-  other than bf16, L past the kernel's cap or not a multiple of 16,
-  reps not dividing N, wrong bias and z shapes, a tensor off the card, a
-  tensor that requires a gradient), and CPU tensors take the plain version
-  with no launch.
+  other than bf16, L past the cap of 256 or not a multiple of 16, reps
+  not dividing N, wrong bias and z shapes, a tensor off the card, a tensor
+  that requires a gradient), and CPU tensors take the plain version with
+  no launch.
 The kernels themselves are held against the plain versions on a card in
 tests/test_torch_cuda.py.
 """
@@ -112,6 +117,13 @@ def test_plain_version_matches_the_script_at_L144(script, variant, dtype):
     test_plain_version_matches_the_script(script, variant, 1, 4, 144, dtype)
 
 
+@pytest.mark.parametrize('variant', ['v2', 'v4'])
+def test_plain_version_matches_the_script_at_the_cap(script, variant):
+    """As above at S2's and S3's cap L=256, one trajectory, bf16."""
+    test_plain_version_matches_the_script(script, variant, 1, 1, 256,
+                                          'bfloat16')
+
+
 # ------------------------------------------------------------ the wrappers
 
 
@@ -144,12 +156,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(variant, bad, match):
 
 
 @pytest.mark.parametrize('variant,L,cap', [
-    ('v1', 272, 256), ('v3', 272, 256), ('v4', 144, 128), ('v2', 208, 192),
+    ('v1', 272, 256), ('v3', 272, 256), ('v4', 272, 256), ('v2', 272, 256),
     ('v1', 512, 256), ('v3', 512, 256)])
 def test_wrapper_refuses_L_past_the_cap(variant, L, cap):
     """Each kernel's cap at 12 heads: S1 runs K1's attention tile (cap 256,
-    K1's), S3 holds every head's f32 logits (cap 128), S2 one head a warp
-    (cap 192)."""
+    K1's), S3 K1's tile with its alpha rows in shared memory (cap 256, K4's
+    tile route), S2 whole K and V tiles of up to 256 keys a head (cap
+    256)."""
     with pytest.raises(ValueError, match=f'L={L} is past the cap L={cap}'):
         CALLS[variant](_meta(L=L), 1)
     # The cap itself passes the shape checks (and stops only at the device).
@@ -166,21 +179,66 @@ def test_p2n_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
 
 
 def test_shared_memory_plans():
-    """The plans the caps come from, at the script's widths (219,520 bytes
-    at L=128 for S3, 230,400 at L=192 for S2; a block may have 232,448);
-    S1's block is K1's attention tile in one stage up to L=128 (90,112
-    bytes at L=128: two blocks an SM) and in K1's two past it (199,680 at
-    L=256), whatever H."""
+    """The plans at the script's widths: S1's block is K1's attention tile
+    in one stage up to L=128 (90,112 bytes at L=128: two blocks an SM) and
+    in K1's two past it (199,680 at L=256), whatever H; S3 holds the
+    gathered alpha rows of the query rows a block owns in a cluster of 8
+    replica groups (16 alpha rows a z row), one replica's alpha and K1's
+    one-stage tile of 64 query rows (114,688 bytes at L=128: two blocks an
+    SM; 217,088 at L=256); S2 four TMA stages at L=128 (197,888) and two at
+    L=256 (214,272). Every block fits in the 232,448 bytes a block may
+    have, at every L each kernel takes."""
     assert (av.tile_smem(128), av.tile_smem(256)) == (90112, 199680)
     assert 2 * (av.tile_smem(128) + 1024) <= 233472
-    assert all(av.tile_smem(L) <= av.SMEM_BLOCK for L in range(16, 257, 16))
-    assert av.max_length('tile', H) == 256
-    assert av.phased_smem(128, H) == 219520
-    assert av.phased_smem(144, H) > av.SMEM_BLOCK
-    assert av.head_batched_smem(192, H) == 230400
-    assert av.head_batched_smem(208, H) > av.SMEM_BLOCK
-    assert (av.max_length('phased', H), av.max_length('head_batched', H)) == (
-        128, 192)
+    assert av.v4_plan(256, 128, H, 64, 256) == {
+        'query_rows': 64, 'threads': 128, 'rt': 2, 'cluster': (1, 1, 8),
+        'rows_per_z': 16, 'smem': 114688, 'grid': (2, H, 128)}
+    assert 2 * (114688 + 1024) <= 233472
+    assert av.v4_plan(256, 256, H, 64, 256) == {
+        'query_rows': 64, 'threads': 128, 'rt': 2, 'cluster': (1, 1, 8),
+        'rows_per_z': 16, 'smem': 217088, 'grid': (4, H, 128)}
+    assert av.v2_plan(256, 128, H, 256) == {
+        'rt': 2, 'stages': 4, 'smem': 197888, 'threads': 384,
+        'grid': (2, 128)}
+    assert av.v2_plan(3, 256, H, 3) == {
+        'rt': 1, 'stages': 2, 'smem': 214272, 'threads': 384,
+        'grid': (4, 3)}
+    for L in range(16, av.MAX_L + 1, 16):
+        assert av.tile_smem(L) <= av.SMEM_BLOCK
+        for reps in (1, 2, 3, 4, 256):
+            assert av.v2_plan(reps, L, H, reps)['smem'] <= av.SMEM_BLOCK
+            for heads, Cz in ((H, 64), (16, 64), (7, 16), (1, 48)):
+                plan = av.v4_plan(reps, L, heads, Cz, reps)
+                _, cy, cz = plan['cluster']
+                assert plan['smem'] <= av.SMEM_BLOCK
+                assert cy * cz <= av.S3_MAX_CLUSTER and heads % cy == 0
+                assert (reps // plan['rt']) % cz == 0
+
+
+@pytest.mark.parametrize('N,L,heads,Cz,reps', [
+    (256, 128, H, 64, 256), (8, 256, H, 64, 4), (6, 144, H, 32, 3),
+    (4, 48, 6, 16, 2), (2, 16, 7, 48, 1)])
+def test_v4_cluster_partition(N, L, heads, Cz, reps):
+    """S3's p2n rows as its blocks deal them: every (n, i, h) written
+    exactly once; a cluster's blocks share one complex and one query tile;
+    a block gathers only its own cluster's alpha rows (their heads and
+    replicas are the cluster's)."""
+    plan = av.v4_plan(N, L, heads, Cz, reps)
+    qt, rt = plan['query_rows'], plan['rt']
+    _, cy, cz = plan['cluster']
+    seen = np.zeros((N, L, heads), np.int32)
+    blocks = {}
+    for cluster, (x, y, zb), n, i, h in av.v4_p2n_writes(N, L, heads, Cz,
+                                                          reps):
+        seen[n, i, h] += 1
+        blocks.setdefault(cluster, set()).add((x, y, zb))
+        assert x * qt <= i < (x + 1) * qt
+        assert y - y % cy <= h < y - y % cy + cy
+        assert zb - zb % cz <= n // rt < zb - zb % cz + cz
+    assert (seen == 1).all()
+    for members in blocks.values():
+        assert len({x for x, _, _ in members}) == 1
+        assert len({zb * rt // reps for _, _, zb in members}) == 1
 
 
 @pytest.mark.parametrize('variant,which', [

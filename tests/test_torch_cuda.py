@@ -515,10 +515,11 @@ def test_chain_kernel_rejects_what_it_does_not_take():
 VARIANT_CASES = [(v, L, Nc, reps) for v in ('v1', 'v3', 'v2', 'v4')
                  for L, Nc, reps in ((16, 2, 1), (48, 1, 3), (128, 2, 1),
                                      (128, 1, 3))]
-VARIANT_CASES += [('v2', 192, 1, 3)]         # S2's cap at 12 heads
-# S1 on K1's attention tile: a ragged query tile (L=144, 64-row tiles) and
-# the cap, in blocks of 1, 2 and 4 replicas.
-VARIANT_CASES += [(v, L, Nc, reps) for v in ('v1', 'v3')
+VARIANT_CASES += [('v2', 192, 1, 3)]         # S2: three 64-key chunks
+# A ragged query tile (L=144: 64-row tiles for S1 and S3, a 64-key chunk
+# of zero-filled keys for S2) and the cap, in blocks of 1, 2 and 4
+# replicas.
+VARIANT_CASES += [(v, L, Nc, reps) for v in ('v1', 'v3', 'v2', 'v4')
                   for L, Nc, reps in ((144, 1, 3), (256, 1, 4), (256, 2, 2))]
 
 
@@ -526,11 +527,11 @@ VARIANT_CASES += [(v, L, Nc, reps) for v in ('v1', 'v3')
 @pytest.mark.parametrize('variant,L,Nc,reps', VARIANT_CASES)
 def test_attention_variants_match_plain_on_card(variant, L, Nc, reps):
     """S1 (v1, v3), S2 (v2) and S3 (v4) against their plain versions (K2's
-    and K4's), bf16, 5 padded key columns, L up to each kernel's cap (S1
-    256, S2 192, S3 128): each
+    and K4's), bf16, 5 padded key columns, L up to the cap 256: each
     tensor within rtol 1e-2 and atol 1e-3 of its largest value (both
     sides compute in f32 and round alpha and each output once). The call
-    launches its kernel once and reaches no plain version."""
+    launches its kernel once and reaches no plain version; a second call
+    is bitwise equal to the first."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
     from ab_opt_tpu_torch.ops import attention_variants as av
@@ -539,26 +540,97 @@ def test_attention_variants_match_plain_on_card(variant, L, Nc, reps):
     qa, ka, vvp, bias, z = make_operands(Nc * reps, reps, L, 12, 64,
                                          torch.device('cuda'), seed=L + reps,
                                          n_pad=5)
+
+    def call():
+        if variant == 'v4':
+            return av.attention_v4(qa, ka, vvp, bias, z, reps)
+        if variant == 'v2':
+            return av.attention_v2(qa, ka, vvp, bias, reps)
+        got = av.attention_v1(qa, ka, vvp, bias, reps,
+                              store_alphas=variant == 'v1')
+        return got if variant == 'v1' else (got,)
+
     av.reset_counts()
     with torch.no_grad():
-        if variant == 'v4':
-            got = av.attention_v4(qa, ka, vvp, bias, z, reps)
-        elif variant == 'v2':
-            got = av.attention_v2(qa, ka, vvp, bias, reps)
-        else:
-            got = av.attention_v1(qa, ka, vvp, bias, reps,
-                                  store_alphas=variant == 'v1')
-            got = got if variant == 'v1' else (got,)
+        got = call()
         torch.cuda.synchronize()
         assert ia.ipa_attention_fwd_reference.calls == 0
         assert ia.ipa_attention_fwd_p2n_reference.calls == 0
         assert av.launches == {k: int(k == variant) for k in av.launches}
+        again = call()
         ref = (ia.ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z, reps)
                if variant == 'v4'
                else ia.ipa_attention_fwd_reference(qa, ka, vvp, bias, reps))
-    for a, b in zip(got, ref):
+    for a, a2, b in zip(got, again, ref):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
         assert torch.isfinite(a).all()
+        assert torch.equal(a, a2)
+        b = b.float()
+        torch.testing.assert_close(a.float(), b, rtol=1e-2,
+                                   atol=1e-3 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L,Nc,reps', [(16, 2, 1), (48, 1, 3), (128, 1, 256),
+                                       (144, 1, 3), (256, 2, 2), (256, 1, 8)])
+def test_v4_is_k4_bitwise_on_card(L, Nc, reps):
+    """S3 runs K4's attention tile and p2n products (H=12, Cz=64: K4's tile
+    route) in one launch: o and p2n equal K4's bit for bit; S2's out and
+    alphas stay within the bf16 gate of S1 v1's (another summation order
+    on wgmma)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import attention_variants as av
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.utils.micro_attention import make_operands
+    qa, ka, vvp, bias, z = make_operands(Nc * reps, reps, L, 12, 64,
+                                         torch.device('cuda'), seed=L + 7,
+                                         n_pad=3)
+    assert ia.fwd_p2n_plan(torch.bfloat16, Nc * reps, L, 12, 64,
+                           reps)['route'] == 'tile'
+    with torch.no_grad():
+        got = av.attention_v4(qa, ka, vvp, bias, z, reps)
+        want = ia.ipa_attention_fwd_p2n(qa, ka, vvp, bias, z, reps)
+        s2 = av.attention_v2(qa, ka, vvp, bias, reps)
+        s1 = av.attention_v1(qa, ka, vvp, bias, reps)
+        torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for a, b in zip(s2, s1):
+        b = b.float()
+        torch.testing.assert_close(a.float(), b, rtol=1e-2,
+                                   atol=1e-3 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('variant', ['v2', 'v4'])
+@pytest.mark.parametrize('H,Cz,L,Nc,reps', [
+    (7, 16, 48, 1, 3), (16, 32, 144, 2, 2), (5, 48, 80, 1, 1),
+    (1, 64, 256, 2, 1)])
+def test_attention_variants_odd_shapes_on_card(variant, H, Cz, L, Nc, reps):
+    """S2 and S3 at shapes off the script's: H from 1 to 16 (S2's head
+    loop with an odd number of items; S3's clusters over heads as well as
+    replica groups), Cz 16-64 (S3), L between 64-key chunks (S2's masked
+    keys) and odd reps (S2 one replica a block), 5 padded key columns,
+    against their plain versions under the bf16 gate."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import attention_variants as av
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.utils.micro_attention import make_operands
+    qa, ka, vvp, bias, z = make_operands(Nc * reps, reps, L, H, Cz,
+                                         torch.device('cuda'), seed=H + L,
+                                         n_pad=5)
+    with torch.no_grad():
+        if variant == 'v4':
+            got = av.attention_v4(qa, ka, vvp, bias, z, reps)
+            ref = ia.ipa_attention_fwd_p2n_reference(qa, ka, vvp, bias, z,
+                                                     reps)
+        else:
+            got = av.attention_v2(qa, ka, vvp, bias, reps)
+            ref = ia.ipa_attention_fwd_reference(qa, ka, vvp, bias, reps)
+        torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all()
         b = b.float()
         torch.testing.assert_close(a.float(), b, rtol=1e-2,
                                    atol=1e-3 * float(b.abs().max()))
@@ -567,8 +639,8 @@ def test_attention_variants_match_plain_on_card(variant, L, Nc, reps):
 @pytest.mark.cuda
 def test_attention_variants_refuse_on_card():
     """float32 and an L past the cap raise on CUDA tensors and launch
-    nothing (S1 past 256, S2 past 192, S3 past 128 at 12 heads); the
-    wrapper's shared-memory plan is the kernel's."""
+    nothing (every variant past 256); the wrappers' plans (S1's shared
+    memory, S2's and S3's whole plans) are the source's."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
     from ab_opt_tpu_torch.ops import attention_variants as av
@@ -577,9 +649,12 @@ def test_attention_variants_refuse_on_card():
     lib = av._library()
     for L in (16, 48, 128, 144, 192, 208, 256):
         assert lib.attention_tile_smem(L) == av.tile_smem(L)
-        assert lib.attention_phased_smem(L, 12) == av.phased_smem(L, 12)
-        assert (lib.attention_head_batched_smem(L, 12)
-                == av.head_batched_smem(L, 12))
+        for reps in (1, 3, 4, 256):
+            assert (av.source_v2_plan(reps, L, 12, reps)
+                    == av.v2_plan(reps, L, 12, reps))
+            for H, Cz in ((12, 64), (16, 32), (7, 16)):
+                assert (av.source_v4_plan(reps, L, H, Cz, reps)
+                        == av.v4_plan(reps, L, H, Cz, reps))
     av.reset_counts()
     qa, ka, vvp, bias, z = make_operands(2, 1, 32, 12, 64, dev)
     f32 = [a.float() for a in (qa, ka, vvp, bias, z)]
@@ -589,15 +664,14 @@ def test_attention_variants_refuse_on_card():
         av.attention_v2(*f32[:4])
     with pytest.raises(ValueError, match='bfloat16 only'):
         av.attention_v4(*f32)
-    qa, ka, vvp, bias, z = make_operands(1, 1, 208, 12, 64, dev)
-    for call in (lambda: av.attention_v2(qa, ka, vvp, bias),
-                 lambda: av.attention_v4(qa, ka, vvp, bias, z)):
-        with pytest.raises(ValueError, match='past the cap'):
-            call()
     qa, ka, vvp, bias, z = make_operands(1, 1, 272, 12, 64, dev)
-    for store in (True, False):
+    for call in (lambda: av.attention_v2(qa, ka, vvp, bias),
+                 lambda: av.attention_v4(qa, ka, vvp, bias, z),
+                 lambda: av.attention_v1(qa, ka, vvp, bias),
+                 lambda: av.attention_v1(qa, ka, vvp, bias,
+                                         store_alphas=False)):
         with pytest.raises(ValueError, match='past the cap L=256'):
-            av.attention_v1(qa, ka, vvp, bias, store_alphas=store)
+            call()
     assert av.launches == {'v1': 0, 'v3': 0, 'v2': 0, 'v4': 0}
 
 

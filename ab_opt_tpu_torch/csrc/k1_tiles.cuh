@@ -10,11 +10,12 @@
 //                     through wgmma, x's row block resident (256 threads)
 //   assemble_row<G>   one row of qa / ka / vvp from proj, R, t (G threads;
 //                     the row in device memory or staged in shared memory)
-//   k1_attn_tile<P,A> the replica-group attention: (query tile, head, rt
+//   k1_attn_tile<P,A,H>
+//                     the replica-group attention: (query tile, head, rt
 //                     replicas of one complex); mma.sync logits, softmax and
 //                     alpha . V in registers (P::QW warps); alpha out in K1's
 //                     layout, K2's, the block's shared memory or not at all
-//                     (A: AlphaOut), a per-warp hook after each replica
+//                     (A: AlphaOut), a per-warp hook H after each replica
 //   p2n_tile<NTH>     16 NTH / 32 alpha rows of one (query row, complex)
 //                     times z[c, i] into the feature rows (NTH threads)
 //   p2n_stage/p2n_mma the same product on 128 alpha rows staged by cp.async
@@ -26,6 +27,11 @@
 //   gemm_tile<E, WG>  64 WG rows x 128 columns through wgmma with the bf16
 //                     (bias, ReLU) or LayerNorm epilogue (128 WG threads; K5
 //                     runs two one-warpgroup tiles side by side)
+//
+// assemble_row, k1_attn_tile and feat_row take a last template parameter,
+// ABL (default 0), a mask of the ABL_* bits below: S4's phase ablations
+// (csrc/gablock.cu) skip or fake the phase a bit names inside the tile.
+// With ABL = 0 each tile is the code K1, K5, K4, K2, S1 and S3 run.
 //
 // Data another block of the same launch may have written (x after the first
 // layer, proj, o, alpha, the feature rows, x1, the MLP hiddens) is read
@@ -217,6 +223,28 @@ __device__ __forceinline__ void group_sync() {
   else __syncthreads();
 }
 
+// ------------------------------------------------------------- ablations
+// S4's phase-ablation bits (the flags of scripts/micro_fused_variants.py
+// with a counterpart here; ops/gablock_variants.py::ABL_BITS mirrors the
+// values). The tiles read the bits of ABL_ASSEMBLE, ABL_ATTN and ABL_FEAT;
+// csrc/gablock.cu acts on the others at the launches.
+enum : int {
+  ABL_SKIP_P2N = 1 << 0,
+  ABL_FAKE_SOFTMAX = 1 << 1,
+  ABL_FAKE_ALPHA = 1 << 2,
+  ABL_SKIP_ROT = 1 << 3,
+  ABL_SKIP_MLP = 1 << 4,
+  ABL_SKIP_SQ = 1 << 5,
+  ABL_FAKE_FEAT = 1 << 6,
+  ABL_SKIP_VALUES = 1 << 7,
+  ABL_THIN_OPS = 1 << 8,
+  ABL_FLOOR = ABL_SKIP_SQ | ABL_SKIP_VALUES | ABL_FAKE_FEAT | ABL_FAKE_ALPHA |
+              ABL_SKIP_ROT | ABL_SKIP_P2N | ABL_SKIP_MLP,
+  ABL_ASSEMBLE = ABL_SKIP_ROT | ABL_SKIP_SQ | ABL_THIN_OPS,
+  ABL_ATTN = ABL_FAKE_SOFTMAX | ABL_FAKE_ALPHA | ABL_SKIP_VALUES,
+  ABL_FEAT = ABL_SKIP_ROT,
+};
+
 // -------------------------------------------------------------- assemble
 // One row (trajectory n, residue i) of proj -> qa / ka / vvp. proj row
 // layout: [q (H*QK) | k (H*QK) | v (H*VD) | qp | kp | vp], each point block
@@ -229,15 +257,20 @@ __device__ __forceinline__ void group_sync() {
 // pr: the row's proj values (H * 168 used) and Rr, tr its R (9, row-major)
 // and t (3), in device memory (K1) or staged in shared memory (K5); smf:
 // (3 npts + 2 H) floats of this group's own.
+// ABL (S4): skip_rot takes the points as projected (no R, t); skip_sq puts
+// in the |p|^2 slot the x of the operand's h-th planar point; thin_ops
+// computes no point and writes zero point and |p|^2 slots (the constant
+// slots kept).
 __host__ __device__ constexpr int assemble_floats(int H) { return 3 * (2 * H * NP + H * NPV) + 2 * H; }
 
-template <int G>
+template <int G, int ABL = 0>
 __device__ __forceinline__ void assemble_row(int row, int tid, const bf16* __restrict__ pr,
                                              const float* __restrict__ Rr,
                                              const float* __restrict__ tr,
                                              const float* __restrict__ coef, int H,
                                              bf16* __restrict__ qa, bf16* __restrict__ ka,
                                              bf16* __restrict__ vv, float* smf) {
+  constexpr bool kThin = (ABL & ABL_THIN_OPS) != 0;
   const int HP = H * NP, HPV = H * NPV, npts = 2 * HP + HPV;
   float* g = smf;                 // (3, npts) global-frame points
   float* sq = smf + 3 * npts;     // (2, H) |qp|^2, |kp|^2 per head
@@ -248,28 +281,40 @@ __device__ __forceinline__ void assemble_row(int row, int tid, const bf16* __res
   for (int e = 0; e < 3; ++e) t[e] = tr[e];
 
   const int pbase = H * (2 * QK + VD);
-  for (int idx = tid; idx < npts; idx += G) {
-    int base, n, j;
-    if (idx < HP) { base = pbase; n = HP; j = idx; }
-    else if (idx < 2 * HP) { base = pbase + 3 * HP; n = HP; j = idx - HP; }
-    else { base = pbase + 6 * HP; n = HPV; j = idx - 2 * HP; }
-    const float px = bf(pr[base + j]), py = bf(pr[base + n + j]), pz = bf(pr[base + 2 * n + j]);
+  if constexpr (!kThin) {
+    for (int idx = tid; idx < npts; idx += G) {
+      int base, n, j;
+      if (idx < HP) { base = pbase; n = HP; j = idx; }
+      else if (idx < 2 * HP) { base = pbase + 3 * HP; n = HP; j = idx - HP; }
+      else { base = pbase + 6 * HP; n = HPV; j = idx - 2 * HP; }
+      const float px = bf(pr[base + j]), py = bf(pr[base + n + j]), pz = bf(pr[base + 2 * n + j]);
+      if constexpr ((ABL & ABL_SKIP_ROT) != 0) {
+        g[idx] = px;
+        g[npts + idx] = py;
+        g[2 * npts + idx] = pz;
+      } else {
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      g[c * npts + idx] = R[3 * c] * px + R[3 * c + 1] * py + R[3 * c + 2] * pz + t[c];
-  }
-  group_sync<G>();
-  for (int k = tid; k < 2 * H; k += G) {
-    const int o = k / H, h = k % H;
-    float s = 0.0f;
-    for (int c = 0; c < 3; ++c)
-      for (int p = 0; p < NP; ++p) {
-        const float v = g[c * npts + o * HP + h * NP + p];
-        s += v * v;
+        for (int c = 0; c < 3; ++c)
+          g[c * npts + idx] = R[3 * c] * px + R[3 * c + 1] * py + R[3 * c + 2] * pz + t[c];
       }
-    sq[k] = s;
+    }
+    group_sync<G>();
+    for (int k = tid; k < 2 * H; k += G) {
+      const int o = k / H, h = k % H;
+      float s = 0.0f;
+      if constexpr ((ABL & ABL_SKIP_SQ) != 0) {
+        s = g[o * HP + h];
+      } else {
+        for (int c = 0; c < 3; ++c)
+          for (int p = 0; p < NP; ++p) {
+            const float v = g[c * npts + o * HP + h * NP + p];
+            s += v * v;
+          }
+      }
+      sq[k] = s;
+    }
+    group_sync<G>();
   }
-  group_sync<G>();
 
   const float s_node = 1.0f / sqrtf(3.0f * QK);
   const size_t ob = (size_t)row * H * SLOT;
@@ -282,14 +327,18 @@ __device__ __forceinline__ void assemble_row(int row, int tid, const bf16* __res
       b = bf(pr[H * QK + h * QK + d]);
       v = bf(pr[2 * H * QK + h * VD + d]);
     } else if (d < QK + 3 * NP) {
-      const int e = d - QK, c = e / NP, p = e % NP;
-      a = -2.0f * cf * g[c * npts + h * NP + p];
-      b = g[c * npts + HP + h * NP + p];
-      v = g[c * npts + 2 * HP + h * NPV + p];
+      if constexpr (kThin) {
+        a = 0.0f; b = 0.0f; v = 0.0f;
+      } else {
+        const int e = d - QK, c = e / NP, p = e % NP;
+        a = -2.0f * cf * g[c * npts + h * NP + p];
+        b = g[c * npts + HP + h * NP + p];
+        v = g[c * npts + 2 * HP + h * NPV + p];
+      }
     } else if (d == QK + 3 * NP) {
-      a = cf * sq[h]; b = 1.0f; v = 0.0f;
+      a = kThin ? 0.0f : cf * sq[h]; b = 1.0f; v = 0.0f;
     } else if (d == QK + 3 * NP + 1) {
-      a = cf; b = sq[H + h]; v = 0.0f;
+      a = cf; b = kThin ? 0.0f : sq[H + h]; v = 0.0f;
     } else {
       a = 0.0f; b = 0.0f; v = 0.0f;
     }
@@ -451,8 +500,9 @@ __device__ __forceinline__ void p2n_mma(int m0, int i, int c, const bf16* Zs, bf
 // out_transform rows): [p2n (H*CZ, written by p2n_tile) | node (H*VD) |
 // points local [x|y|z] (3*H*NPV) | distance (H*NPV) | direction [x|y|z]
 // (3*H*NPV)]. orow: the row's attention values (H*SLOT) and Rr, tr its R
-// and t, in device memory (K1) or staged in shared memory (K5).
-template <int G>
+// and t, in device memory (K1) or staged in shared memory (K5). ABL (S4):
+// skip_rot takes the aggregated points as they are (no R^T (. - t)).
+template <int G, int ABL = 0>
 __device__ __forceinline__ void feat_row(int row, int tid, const bf16* __restrict__ orow,
                                          const float* __restrict__ Rr,
                                          const float* __restrict__ tr, bf16* __restrict__ feat,
@@ -473,10 +523,15 @@ __device__ __forceinline__ void feat_row(int row, int tid, const bf16* __restric
   for (int idx = tid; idx < HPV; idx += G) {
     const int h = idx / NPV, p = idx % NPV;
     const bf16* pt = orow + h * SLOT + VD + p;
-    const float d0 = bf(pt[0]) - t[0], d1 = bf(pt[NPV]) - t[1], d2 = bf(pt[2 * NPV]) - t[2];
     float l[3];
+    if constexpr ((ABL & ABL_SKIP_ROT) != 0) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) l[c] = R[c] * d0 + R[3 + c] * d1 + R[6 + c] * d2;
+      for (int c = 0; c < 3; ++c) l[c] = bf(pt[c * NPV]);
+    } else {
+      const float d0 = bf(pt[0]) - t[0], d1 = bf(pt[NPV]) - t[1], d2 = bf(pt[2 * NPV]) - t[2];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) l[c] = R[c] * d0 + R[3 + c] * d1 + R[6 + c] * d2;
+    }
     const float ss = l[0] * l[0] + l[1] * l[1] + l[2] * l[2];
     const float inv = 1.0f / (sqrtf(ss + 1e-8f) + 1e-4f);
 #pragma unroll
@@ -541,20 +596,31 @@ struct NoHook {
 
 // One warp's 16 query rows of one replica: logits, softmax, alpha (to arow,
 // rows a_ld apart, in device or shared memory; none without STORE_ALPHA),
-// o.
-template <int KMAX, bool STORE_ALPHA = true>
+// o. ABL (S4), the bits of ABL_ATTN:
+//   fake_softmax  alpha = bf16(0.01 (logits + bias)) from the C fragments:
+//                 no max, exp or sum;
+//   fake_alpha    no Q . K (neither Q's fragments nor K's are read):
+//                 alpha = bf16(0.01 bias), from the staged bias rows;
+//   skip_values   no alpha . V: o = the replica's own vvp rows (row i of the
+//                 V stage for query row i), by the same 16-byte stores.
+template <int KMAX, bool STORE_ALPHA = true, int ABL = 0>
 __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf16* Qw,
                                              const bf16* Bw, int BLD, int L, int i_first,
                                              bf16* __restrict__ orow, size_t o_ld,
                                              bf16* __restrict__ arow, size_t a_ld,
                                              int lane) {
+  constexpr bool kFakeAlpha = (ABL & ABL_FAKE_ALPHA) != 0;
+  constexpr bool kLinear = (ABL & (ABL_FAKE_ALPHA | ABL_FAKE_SOFTMAX)) != 0;
+  constexpr bool kSkipValues = (ABL & ABL_SKIP_VALUES) != 0;
   const int g = lane >> 2, t = lane & 3;
   const int nt = L >> 3;
 
   uint32_t qf[SLOT / 16][4];
+  if constexpr (!kFakeAlpha) {
 #pragma unroll
-  for (int kk = 0; kk < SLOT / 16; ++kk)
-    ldsm_x4(qf[kk], Qw + (lane & 15) * KLD + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < SLOT / 16; ++kk)
+      ldsm_x4(qf[kk], Qw + (lane & 15) * KLD + kk * 16 + (lane >> 4) * 8);
+  }
 
   // Logits (16 x L) in mma C fragments: s[jt] holds rows g, g + 8 and the
   // key columns 8 jt + 2t, + 1.
@@ -562,7 +628,7 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
 #pragma unroll
   for (int jt = 0; jt < KMAX / 8; ++jt) {
     s[jt][0] = s[jt][1] = s[jt][2] = s[jt][3] = 0.0f;
-    if (jt < nt) {
+    if (!kFakeAlpha && jt < nt) {
       const bf16* kr = Ks + (jt * 8 + (lane & 7)) * KLD + (lane >> 3) * 8;
       uint32_t k0[4], k1[4];     // channels 0-31, 32-63: b0, b1 of two k-steps each
       ldsm_x4(k0, kr);
@@ -578,48 +644,62 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
   // (masked keys carry -1e5 in the bias).
   const bf16* b0 = Bw + g * BLD + 2 * t;
   const bf16* b1 = b0 + 8 * BLD;
-  float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-  for (int jt = 0; jt < KMAX / 8; ++jt) {
-    if (jt < nt) {
-      const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b0 + jt * 8));
-      const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + jt * 8));
-      s[jt][0] += u.x;
-      s[jt][1] += u.y;
-      s[jt][2] += w.x;
-      s[jt][3] += w.y;
-      m0 = fmaxf(m0, fmaxf(s[jt][0], s[jt][1]));
-      m1 = fmaxf(m1, fmaxf(s[jt][2], s[jt][3]));
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-  }
-  float l0 = 0.0f, l1 = 0.0f;
-#pragma unroll
-  for (int jt = 0; jt < KMAX / 8; ++jt) {
-    if (jt < nt) {
-      s[jt][0] = __expf(s[jt][0] - m0);
-      s[jt][1] = __expf(s[jt][1] - m0);
-      s[jt][2] = __expf(s[jt][2] - m1);
-      s[jt][3] = __expf(s[jt][3] - m1);
-      l0 += s[jt][0] + s[jt][1];
-      l1 += s[jt][2] + s[jt][3];
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-  }
-  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
   uint32_t p[KMAX / 8][2];
+  if constexpr (kLinear) {
 #pragma unroll
-  for (int jt = 0; jt < KMAX / 8; ++jt) {
-    p[jt][0] = pack2(s[jt][0] * inv0, s[jt][1] * inv0);
-    p[jt][1] = pack2(s[jt][2] * inv1, s[jt][3] * inv1);
+    for (int jt = 0; jt < KMAX / 8; ++jt) {
+      if (jt < nt) {
+        const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b0 + jt * 8));
+        const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + jt * 8));
+        p[jt][0] = pack2(0.01f * (s[jt][0] + u.x), 0.01f * (s[jt][1] + u.y));
+        p[jt][1] = pack2(0.01f * (s[jt][2] + w.x), 0.01f * (s[jt][3] + w.y));
+      } else {
+        p[jt][0] = p[jt][1] = 0u;
+      }
+    }
+  } else {
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int jt = 0; jt < KMAX / 8; ++jt) {
+      if (jt < nt) {
+        const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b0 + jt * 8));
+        const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + jt * 8));
+        s[jt][0] += u.x;
+        s[jt][1] += u.y;
+        s[jt][2] += w.x;
+        s[jt][3] += w.y;
+        m0 = fmaxf(m0, fmaxf(s[jt][0], s[jt][1]));
+        m1 = fmaxf(m1, fmaxf(s[jt][2], s[jt][3]));
+      }
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    }
+    float l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+    for (int jt = 0; jt < KMAX / 8; ++jt) {
+      if (jt < nt) {
+        s[jt][0] = __expf(s[jt][0] - m0);
+        s[jt][1] = __expf(s[jt][1] - m0);
+        s[jt][2] = __expf(s[jt][2] - m1);
+        s[jt][3] = __expf(s[jt][3] - m1);
+        l0 += s[jt][0] + s[jt][1];
+        l1 += s[jt][2] + s[jt][3];
+      }
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+    }
+    const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+#pragma unroll
+    for (int jt = 0; jt < KMAX / 8; ++jt) {
+      p[jt][0] = pack2(s[jt][0] * inv0, s[jt][1] * inv0);
+      p[jt][1] = pack2(s[jt][2] * inv1, s[jt][3] * inv1);
+    }
   }
 
   // alpha out, 64 key columns at a time through the staging tile Qw.
@@ -647,42 +727,49 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
   }
 
   // o = alpha . vvp: the packed alpha registers are the A fragments.
-  float oc[SLOT / 8][4];
+  const bf16* ostage = Qw;
+  if constexpr (kSkipValues) {
+    ostage = Vs + i_first * KLD;
+  } else {
+    float oc[SLOT / 8][4];
 #pragma unroll
-  for (int j = 0; j < SLOT / 8; ++j) oc[j][0] = oc[j][1] = oc[j][2] = oc[j][3] = 0.0f;
+    for (int j = 0; j < SLOT / 8; ++j) oc[j][0] = oc[j][1] = oc[j][2] = oc[j][3] = 0.0f;
 #pragma unroll
-  for (int kk = 0; kk < KMAX / 16; ++kk) {
-    if (2 * kk < nt) {
-      const uint32_t a[4] = {p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0], p[2 * kk + 1][1]};
-      const bf16* vr = Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * KLD + (lane >> 4) * 8;
+    for (int kk = 0; kk < KMAX / 16; ++kk) {
+      if (2 * kk < nt) {
+        const uint32_t a[4] = {p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0], p[2 * kk + 1][1]};
+        const bf16* vr = Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * KLD + (lane >> 4) * 8;
 #pragma unroll
-      for (int d = 0; d < SLOT / 16; ++d) {
-        uint32_t vb[4];
-        ldsm_x4_t(vb, vr + d * 16);
-        mma_bf16(oc[2 * d], a, vb[0], vb[1]);
-        mma_bf16(oc[2 * d + 1], a, vb[2], vb[3]);
+        for (int d = 0; d < SLOT / 16; ++d) {
+          uint32_t vb[4];
+          ldsm_x4_t(vb, vr + d * 16);
+          mma_bf16(oc[2 * d], a, vb[0], vb[1]);
+          mma_bf16(oc[2 * d + 1], a, vb[2], vb[3]);
+        }
       }
     }
-  }
-  __syncwarp();
+    __syncwarp();
 #pragma unroll
-  for (int j = 0; j < SLOT / 8; ++j) {
-    st_shared_u32(Qw + g * KLD + j * 8 + 2 * t, pack2(oc[j][0], oc[j][1]));
-    st_shared_u32(Qw + (g + 8) * KLD + j * 8 + 2 * t, pack2(oc[j][2], oc[j][3]));
+    for (int j = 0; j < SLOT / 8; ++j) {
+      st_shared_u32(Qw + g * KLD + j * 8 + 2 * t, pack2(oc[j][0], oc[j][1]));
+      st_shared_u32(Qw + (g + 8) * KLD + j * 8 + 2 * t, pack2(oc[j][2], oc[j][3]));
+    }
+    __syncwarp();
   }
-  __syncwarp();
 #pragma unroll
   for (int u = lane; u < 128; u += 32) {
     const int r = u >> 3, q = u & 7;
     if (i_first + r < L)
-      *reinterpret_cast<uint4*>(orow + r * o_ld + q * 8) = ld_shared_v4(Qw + r * KLD + q * 8);
+      *reinterpret_cast<uint4*>(orow + r * o_ld + q * 8) = ld_shared_v4(ostage + r * KLD + q * 8);
   }
 }
 
 // The tile (i0, h, n0 .. n0 + rt - 1) on Plan::QW * 32 threads; bias_ch is
 // the (L, L) pair bias of (complex, head); alpha in the layout AO names;
-// `hook` runs in each warp after each replica.
-template <class Plan, AlphaOut AO = ALPHA_K1, class Hook = NoHook>
+// `hook` runs in each warp after each replica; ABL as k1_attn_warp takes it.
+// Under fake_alpha a stage loads only V: K's rows are never read, and the
+// Q rows' room serves only as the warps' staging tiles.
+template <class Plan, AlphaOut AO = ALPHA_K1, class Hook = NoHook, int ABL = 0>
 __device__ __forceinline__ void k1_attn_tile(int i0, int h, int n0, int rt,
                                              const bf16* __restrict__ qa,
                                              const bf16* __restrict__ ka,
@@ -705,10 +792,12 @@ __device__ __forceinline__ void k1_attn_tile(int i0, int h, int n0, int rt,
     const int r = idx / chunks, cc = (idx - r * chunks) * 8, i = i0 + r;
     cp_async16(&Bs[r * BLD + cc], bias_ch + (size_t)(i < L ? i : 0) * L + cc, i < L);
   }
+  constexpr bool kFakeAlpha = (ABL & ABL_FAKE_ALPHA) != 0;
   auto load_stage = [&](int r, bf16* st) {
     const size_t nb = (size_t)(n0 + r) * L;
     bf16* Ks = st;
-    for (int idx = tid; idx < (2 * L + QT) * 8; idx += NTH) {
+    const int first = kFakeAlpha ? L * 8 : 0, last = kFakeAlpha ? 2 * L * 8 : (2 * L + QT) * 8;
+    for (int idx = first + tid; idx < last; idx += NTH) {
       const int row = idx >> 3, cc = (idx & 7) * 8;
       const bf16* src;
       bool ok = true;
@@ -755,7 +844,7 @@ __device__ __forceinline__ void k1_attn_tile(int i0, int h, int n0, int rt,
         arow = alpha + (size_t)wrow * L;
         a_ld = L;
       }
-      k1_attn_warp<Plan::KMAX, AO != ALPHA_NONE>(
+      k1_attn_warp<Plan::KMAX, AO != ALPHA_NONE, ABL>(
           Ks, Vs, Qs + wrow * KLD, Bs + wrow * BLD, BLD, L, i_first,
           o + ((size_t)n * L + i_first) * HD + h * SLOT, (size_t)HD, arow, a_ld, lane);
       hook(r, wrow, lane);

@@ -5,7 +5,7 @@ PyTorch versions.
 Counterpart of ``ab_opt_tpu/ops/gablock_pallas.py`` (``_gablock_kernel``,
 ``fused_gablock_layer``, ``build_gablock_weights``; ``_encoder_chain_kernel``,
 ``fused_encoder_chained``, ``stack_encoder_weights``). The kernel sources
-are ``csrc/gablock.cu`` (which also runs the variant harness S4,
+are ``csrc/gablock.cu`` (whose launches also run the variant harness S4,
 :mod:`.gablock_variants`) and ``csrc/gablock_chain.cu``; each is compiled
 with ``nvcc`` for ``sm_90a`` into ``_build/`` at first use and loaded with
 ``ctypes``.
@@ -27,7 +27,7 @@ from a :class:`ab_opt_tpu_torch.nn.ipa.GABlock`:
   (3, F) f32: the transition MLP;
 * ``w_proj_t``, ``w_out_t``, ``w_m1_t``..``w_m3_t``: the same five matrices
   transposed, (N, K) with K contiguous, as K1's and K5's GEMM tile reads
-  them (S4 reads the (K, N) forms);
+  them (S4 runs K1's launches and reads them too);
 * ``dims``: (H, QK, V, P, PV).
 
 Per-complex inputs under trajectory fan-out (row n belongs to complex
@@ -420,19 +420,20 @@ def _check_tensors(expect: dict, x, who: str = 'gablock_layer'):
                      f'{a.device}', who)
 
 
-def _check_inputs(x, R9, t, z, bias, mask, wb, reps: int):
+def _check_inputs(x, R9, t, z, bias, mask, wb, reps: int,
+                  who: str = 'gablock_layer'):
     """Raise on anything the kernel does not take (shapes, dtypes,
     contiguity, then device, then the transposed weights K1 reads)."""
-    expect = _expected(x, R9, t, z, mask, wb, reps)
+    expect = _expected(x, R9, t, z, mask, wb, reps, who=who)
     N, L, _ = x.shape
     H = wb['dims'][0]
     expect['bias'] = (bias, (N // reps, H, L, L), torch.bfloat16)
-    _check_tensors(expect, x)
+    _check_tensors(expect, x, who)
     missing = [n + '_t' for n in TRANSPOSED if n + '_t' not in wb]
     _require(not missing, f'the bundle lacks {missing} (build it with '
-             'build_gablock_weights)')
+             'build_gablock_weights)', who)
     _check_tensors({n + '_t': (wb[n + '_t'], tuple(wb[n].shape[::-1]),
-                               torch.bfloat16) for n in TRANSPOSED}, x)
+                               torch.bfloat16) for n in TRANSPOSED}, x, who)
 
 
 def gablock_layer(x, R9, t, z, bias, mask, wb, reps: int = 1):
@@ -460,15 +461,14 @@ def _launch_error(lib, err: int, what: str = 'gablock kernel'):
 
 def _launch_layer(entry: str, x, R9, t, z, bias, mask, wb, reps, *extra):
     """One launch of the layer entry ``entry`` of ``csrc/gablock.cu``
-    (``gablock_forward``, K1, which reads the transposed weights, with
-    ``extra`` (rt,), or ``gablock_forward_variant`` with ``extra`` (abl,
-    rt)) on checked CUDA inputs; raises if a launch was refused."""
+    (``gablock_forward``, K1, with ``extra`` (rt,), or
+    ``gablock_forward_variant``, S4, with ``extra`` (abl, rt); both read
+    the transposed weights) on checked CUDA inputs; raises if a launch was
+    refused."""
     lib = _library()
     N, L, F = x.shape
     H = wb['dims'][0]
     pw, ko = wb['w_proj'].shape[1], wb['w_out'].shape[0]
-    w = ((lambda n: wb[n + '_t']) if entry == 'gablock_forward'
-         else (lambda n: wb[n]))
     with torch.cuda.device(x.device):
         ws = torch.empty(lib.gablock_workspace_bytes(N, L, H, pw, ko),
                          dtype=torch.uint8, device=x.device)
@@ -476,9 +476,9 @@ def _launch_layer(entry: str, x, R9, t, z, bias, mask, wb, reps, *extra):
         ptr = lambda a: a.data_ptr()
         err = getattr(lib, entry)(
             ptr(x), ptr(R9), ptr(t), ptr(z), ptr(bias), ptr(mask),
-            ptr(w('w_proj')), pw, ptr(wb['coef']), ptr(w('w_out')), ko,
-            ptr(wb['b_out']), ptr(wb['ln1']), ptr(w('w_m1')),
-            ptr(w('w_m2')), ptr(w('w_m3')), ptr(wb['b_m']),
+            ptr(wb['w_proj_t']), pw, ptr(wb['coef']), ptr(wb['w_out_t']), ko,
+            ptr(wb['b_out']), ptr(wb['ln1']), ptr(wb['w_m1_t']),
+            ptr(wb['w_m2_t']), ptr(wb['w_m3_t']), ptr(wb['b_m']),
             ptr(wb['ln2']), ptr(out), ptr(ws), N, L, H, reps,
             torch.cuda.current_stream(x.device).cuda_stream, *extra)
     _launch_error(lib, err)

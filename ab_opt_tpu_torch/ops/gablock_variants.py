@@ -1,39 +1,43 @@
 """The fused-GABlock variant harness (S4): K1 with its attention batched over
-replicas (v3), and K1 with one phase skipped or faked (abl), their wrappers
-and their plain versions.
+a chosen number of replicas (v3), and K1 with one phase skipped or faked
+(abl), their wrappers and their plain versions.
 
 Counterpart of ``scripts/micro_fused_variants.py``: the two bodies its
 ``run_layer`` (:165) launches, ``_gablock_kernel_v3`` (:48) and
-``_gablock_kernel_abl`` (:264). Both run from K1's own source,
-``csrc/gablock.cu``, through its entry ``gablock_forward_variant``; no route
-of the sampler selects them. They exist to be timed against K1
-(``utils/micro_fused.py``): the ablations price the phases inside K1's
-launches.
+``_gablock_kernel_abl`` (:264). Both run K1's own launches and tiles
+(``csrc/gablock.cu``, ``forward_k1<mask>`` through its entry
+``gablock_forward_variant``); no route of the sampler selects them. They
+exist to be timed against K1 (``utils/micro_fused.py``): the ablations
+price the phases of K1's launches as they are.
 
-* v3 (:func:`gablock_layer_v3`): K1's function, with step 3 (the
-  attention) run by one block per (64 query rows, head, ``rt`` replicas of
-  one complex) that stages the tile's pair-bias rows once for all ``rt``
-  replicas. Its plain version is K1's,
-  :func:`.gablock.gablock_layer_reference`: it is the same function.
-* abl (:func:`gablock_layer_abl`): K1 with the phases ``flags`` names
-  skipped or faked; plain version :func:`gablock_layer_abl_reference`.
+* v3 (:func:`gablock_layer_v3`): K1 itself (mask 0) with the attention
+  run by one block per (query tile, head, ``rt`` replicas of one complex),
+  the tile's pair-bias rows staged once for all ``rt`` replicas; K1 takes
+  ``rt`` = :func:`.gablock.attention_replicas`. Grouping replicas changes no
+  sum, so v3 equals K1 bit for bit at every ``rt``. Its plain version is
+  K1's, :func:`.gablock.gablock_layer_reference`.
+* abl (:func:`gablock_layer_abl`): K1 (with K1's ``rt``) with the phases
+  ``flags`` names skipped or faked; with no flag it is K1. Plain version
+  :func:`gablock_layer_abl_reference`.
 
 How each of the script's flags (``FLAGS``) maps onto K1:
 
 ==============  ==========================================================
 flag            counterpart
 ==============  ==========================================================
-skip_p2n        ``p2n_kernel`` not launched; the p2n feature columns zero
-fake_softmax    attn: alpha = bf16(0.01 (logits + bias)), no max/exp/sum
-fake_alpha      attn: alpha = bf16(0.01 bias), no logits product, no softmax
+skip_p2n        K1's p2n launch skipped; the p2n feature columns zero
+fake_softmax    attention tile: alpha = bf16(0.01 (logits + bias)), no
+                max/exp/sum
+fake_alpha      attention tile: alpha = bf16(0.01 bias), no logits product
+                (K's and Q's rows not loaded), no softmax
 skip_rot        assemble without R, t; feat without R^T (. - t)
 skip_mlp        the MLP GEMMs and LN2 not launched; out = x1
 skip_sq         assemble: the |p|^2 slot takes the first H planar point
                 columns (x of the operand's first H points)
-fake_feat       ``feat_kernel`` not launched; the H (V + 7 PV) non-p2n
-                feature columns are ``[o | o[:, :H (V + 7 PV) - H 64]]``
-                over o's 64-wide slots (pad zero)
-skip_values     attn: no alpha . V; o = the replica's own vvp rows
+fake_feat       K1's feat launch replaced by a copy: the H (V + 7 PV)
+                non-p2n feature columns are ``[o | o[:, :H (V + 7 PV) -
+                H 64]]`` over o's 64-wide slots (pad zero)
+skip_values     attention tile: no alpha . V; o = the replica's own vvp rows
 thin_ops        assemble: the point and |p|^2 slots of qa/ka and the point
                 slots of vvp zero, the constant slots kept
 skip_sect       none (see below)
@@ -68,8 +72,8 @@ from . import gablock as gb
 FLAGS = ('skip_p2n', 'fake_softmax', 'fake_alpha', 'skip_rot', 'skip_mlp',
          'skip_out', 'skip_sect', 'skip_sq', 'fake_feat', 'skip_values',
          'skip_wpts', 'thin_ops')
-# The kernel's mask bit of each flag with a counterpart (ABL_* in the
-# source, in this order).
+# The kernel's mask bit of each flag with a counterpart (the ABL_* enum of
+# csrc/k1_tiles.cuh, in this order).
 ABL_BITS = {name: 1 << i for i, name in enumerate((
     'skip_p2n', 'fake_softmax', 'fake_alpha', 'skip_rot', 'skip_mlp',
     'skip_sq', 'fake_feat', 'skip_values', 'thin_ops'))}
@@ -143,27 +147,20 @@ gablock_layer_abl_reference.calls = 0
 
 def _prepare(x, R9, t, z, bias, mask, wb, reps, rt):
     """Refuse gradients and an ``rt`` that does not divide ``reps``; True
-    where the inputs go to the card (then after K1's operand checks: v3's
-    attention block fits in shared memory at every L they take, which the
-    source asserts)."""
+    where the inputs go to the card (then after K1's operand checks)."""
     _no_grad({'x': x, 'R9': R9, 't': t, 'z': z, 'bias': bias, 'mask': mask})
-    _require(rt >= 0 and (rt == 0 or reps % rt == 0),
-             f'rt={rt} must divide reps={reps}')
+    _require(reps % rt == 0, f'rt={rt} must divide reps={reps}')
     if x.device.type == 'cpu':
         return False
-    who = 'gablock_variants'
-    expect = gb._expected(x, R9, t, z, mask, wb, reps, who=who)
-    N, L, _ = x.shape
-    H = wb['dims'][0]
-    expect['bias'] = (bias, (N // reps, H, L, L), torch.bfloat16)
-    gb._check_tensors(expect, x, who)
+    gb._check_inputs(x, R9, t, z, bias, mask, wb, reps,
+                     who='gablock_variants')
     return True
 
 
 def gablock_layer_v3(x, R9, t, z, bias, mask, wb, reps: int, rt: int):
-    """v3: one GABlock layer, K1's function, with the attention batched over
-    ``rt`` replicas of one complex (``rt`` >= 1 divides ``reps``). Operands
-    as :func:`.gablock.gablock_layer`."""
+    """v3: one GABlock layer through K1's launches with the attention
+    batched over ``rt`` replicas of one complex (``rt`` >= 1 divides
+    ``reps``). Operands as :func:`.gablock.gablock_layer`."""
     _require(rt >= 1, f'rt={rt} (v3 batches at least one replica)')
     if not _prepare(x, R9, t, z, bias, mask, wb, reps, rt):
         return gb.gablock_layer_reference(x, R9, t, z, bias, mask, wb, reps)
@@ -178,10 +175,11 @@ def gablock_layer_abl(x, R9, t, z, bias, mask, wb, reps: int = 1, flags=()):
     skipped or faked (none, one flag, or the floor; see the module
     docstring). Operands as :func:`.gablock.gablock_layer`."""
     abl = abl_mask(flags)
-    if not _prepare(x, R9, t, z, bias, mask, wb, reps, 0):
+    rt = gb.attention_replicas(reps)
+    if not _prepare(x, R9, t, z, bias, mask, wb, reps, rt):
         return gablock_layer_abl_reference(x, R9, t, z, bias, mask, wb, reps,
                                            flags)
     out = gb._launch_layer('gablock_forward_variant', x, R9, t, z, bias, mask,
-                           wb, reps, abl, 0)
+                           wb, reps, abl, rt)
     launches['abl'] += 1
     return out

@@ -116,7 +116,7 @@ def k1_by_kind(args, bundles, biases):
     from .micro_fused import profile_layer
     _, _, R9, t, x, z, _, mask, reps = args
     rows = profile_layer((x, R9, t, z, biases[0], mask, bundles[0], reps))
-    return {kind: LAYERS * sum(us for key, us, _ in rows
+    return {kind: LAYERS * sum(us for key, us in rows
                                if any(k in key for k in names))
             for kind, names in K1_LAUNCHES.items()}
 

@@ -675,24 +675,24 @@ def test_attention_variants_refuse_on_card():
     assert av.launches == {'v1': 0, 'v3': 0, 'v2': 0, 'v4': 0}
 
 
-def _gablock_case(L, Nc, reps):
-    """One seeded GABlock layer at the sampler's widths (H=12), 5 padded
-    rows a complex: the arguments of gablock_layer."""
+def _gablock_case(L, Nc, reps, n_pad=5):
+    """One seeded GABlock layer at the sampler's widths (H=12), n_pad
+    padded rows a complex: the arguments of gablock_layer."""
     from ab_opt_tpu_torch.utils.micro_fused import make_case
-    return make_case(Nc, reps, L, torch.device('cuda'), n_pad=5,
+    return make_case(Nc, reps, L, torch.device('cuda'), n_pad=n_pad,
                      seed=L + reps)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('L,Nc,reps,rt', [
     (L, Nc, reps, rt) for L in (16, 48, 128) for Nc, reps, rt in
-    ((2, 4, 2), (1, 8, 4))])
+    ((2, 4, 2), (1, 8, 4), (1, 8, 1), (1, 8, 8))])
 def test_gablock_v3_matches_plain_on_card(L, Nc, reps, rt):
-    """S4's v3 (attention over rt replicas) against K1's plain version,
-    bf16, 5 padded rows a complex, atol/rtol 0.05 on valid rows; one v3
-    launch, no K1 launch and no plain call. It also equals the abl
-    baseline (mask 0, the code v3 varies) exactly: the same arithmetic,
-    with the bias rows read from shared memory."""
+    """S4's v3 (K1's launches, the attention over rt replicas) against
+    K1's plain version, bf16, 5 padded rows a complex, atol/rtol 0.05 on
+    valid rows; one v3 launch, no K1 launch and no plain call. It equals
+    K1 (which takes its own rt) and the abl baseline (mask 0) bit for bit:
+    grouping replicas into blocks changes no sum."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
     args = _gablock_case(L, Nc, reps)
@@ -705,7 +705,21 @@ def test_gablock_v3_matches_plain_on_card(L, Nc, reps, rt):
             {'v3': 1, 'abl': 0}, 0)
         assert gb.gablock_layer_reference.calls == 0
         ref = gb.gablock_layer_reference(*args)
+        assert torch.equal(got, gb.gablock_layer(*args))
         assert torch.equal(got, gv.gablock_layer_abl(*args))
+    valid = args[5] > 0
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[valid], ref[valid], atol=0.05, rtol=0.05)
+
+
+def _ablation_matches_plain(args, flags):
+    gv.reset_counts()
+    with torch.no_grad():
+        got = gv.gablock_layer_abl(*args, flags=flags)
+        torch.cuda.synchronize()
+        assert gv.launches == {'v3': 0, 'abl': 1}
+        assert gv.gablock_layer_abl_reference.calls == 0
+        ref = gv.gablock_layer_abl_reference(*args, flags=flags)
     valid = args[5] > 0
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got[valid], ref[valid], atol=0.05, rtol=0.05)
@@ -720,17 +734,38 @@ def test_gablock_ablations_match_plain_on_card(flags):
     on valid rows; one abl launch and no plain call."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
-    args = _gablock_case(48, 2, 3)
-    gv.reset_counts()
+    _ablation_matches_plain(_gablock_case(48, 2, 3), flags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L', [128, 256])
+@pytest.mark.parametrize('flags', [()] + list(gv.ABLATIONS),
+                         ids=lambda f: f[0] if len(f) == 1 else
+                         'floor' if f else 'none')
+def test_gablock_ablations_on_both_attention_plans_on_card(L, flags):
+    """Every mask of S4 (none, each flag, the floor) against its plain
+    version on each of K1's attention plans: L=128 (128 query rows, three
+    stages) and L=256 (64 rows, two stages), one complex of 4 replicas (one
+    replica group), 5 padded rows, atol/rtol 0.05 on valid rows."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    _ablation_matches_plain(_gablock_case(L, 1, 4), flags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('Nc,reps,n_pad,L', [
+    (1, 32, 0, 128), (2, 4, 8, 128), (1, 256, 0, 128), (2, 3, 5, 48),
+    (1, 4, 0, 256), (2, 1, 3, 128)])
+def test_gablock_abl_baseline_is_k1_bitwise_on_card(Nc, reps, n_pad, L):
+    """The abl baseline (mask 0) is K1 bit for bit at K1's checked shapes
+    (chip_smoke.py's K1_CASES: reps 1 to 256, ragged query tiles, padded
+    rows, both attention plans)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    args = _gablock_case(L, Nc, reps, n_pad)
     with torch.no_grad():
-        got = gv.gablock_layer_abl(*args, flags=flags)
-        torch.cuda.synchronize()
-        assert gv.launches == {'v3': 0, 'abl': 1}
-        assert gv.gablock_layer_abl_reference.calls == 0
-        ref = gv.gablock_layer_abl_reference(*args, flags=flags)
-    valid = args[5] > 0
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got[valid], ref[valid], atol=0.05, rtol=0.05)
+        assert torch.equal(gv.gablock_layer_abl(*args),
+                           gb.gablock_layer(*args))
 
 
 @pytest.mark.cuda

@@ -22,13 +22,17 @@ CPU:
   off the card, a tensor that requires a gradient), and CPU tensors take
   the plain version with no launch;
 * the harness (ab_opt_tpu_torch.utils.micro_fused): what it times, and
-  that it runs nothing on CPU inputs.
+  that it runs nothing on CPU inputs;
+* the mirror of the kernel's mask bits: the ``ABL_*`` enum of
+  ``csrc/k1_tiles.cuh`` and the masks ``csrc/gablock.cu``'s entry takes,
+  read as text, against ``ABL_BITS``, ``FLOOR`` and ``KERNEL_MASKS``.
 The kernels themselves are held against the plain versions on a card in
 tests/test_torch_cuda.py.
 """
 import functools
 import importlib.util
 import pathlib
+import re
 from types import SimpleNamespace
 
 import numpy as np
@@ -120,7 +124,8 @@ def _close(got, want, valid):
     np.testing.assert_allclose(got[valid], want[valid], atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize('Nc,reps,rt', [(2, 1, 1), (1, 4, 2), (1, 4, 4)])
+@pytest.mark.parametrize('Nc,reps,rt', [(2, 1, 1), (1, 4, 2), (1, 4, 4),
+                                        (1, 8, 8)])
 def test_v3_plain_version_matches_the_script(script, Nc, reps, rt):
     """v3's plain version (K1's) against ``_gablock_kernel_v3``; the
     wrapper on CPU tensors launches nothing."""
@@ -262,7 +267,7 @@ def test_harness_times_every_variant_and_refuses_cpu_inputs():
     *_, port, _ = _layer(1, 2)
     gv.reset_counts()
     with pytest.raises(RuntimeError, match='CUDA device'):
-        mf.time_variants(port, 2)
+        mf.time_variants(port, mf.variants(2))
     assert gv.launches == {'v3': 0, 'abl': 0}
     assert gb.gablock_layer_reference.calls == 0
     assert mf.medians({'a': [3.0, 1.0, 2.0, 9.0]}) == {'a': 2.5}
@@ -276,3 +281,37 @@ def test_kernel_masks():
     assert gv.abl_mask(gv.FLOOR + ('skip_sect',)) == gv.abl_mask(gv.FLOOR)
     assert gv.abl_mask(('skip_sect',)) == 0
     assert len(gv.KERNEL_MASKS) == 11
+
+
+CSRC = pathlib.Path(gb.__file__).resolve().parents[1] / 'csrc'
+
+
+def _abl_enum():
+    """The ``ABL_*`` enum of ``csrc/k1_tiles.cuh`` as ({name: bit} of the
+    names set to ``1 << k``, {name: value} of every name, the unions of
+    names (``A | B ...``) included)."""
+    text = (CSRC / 'k1_tiles.cuh').read_text()
+    body = re.search(r'enum : int \{(.*?)\};', text, re.S).group(1)
+    bits, enum = {}, {}
+    for name, expr in re.findall(r'(ABL_\w+)\s*=\s*([^,]+),', body):
+        bit = re.fullmatch(r'1 << (\d+)', expr.strip())
+        if bit:
+            bits[name] = 1 << int(bit.group(1))
+        enum[name] = bits[name] if bit else sum(
+            enum[n] for n in re.findall(r'ABL_\w+', expr))
+    return bits, enum
+
+
+def test_mask_bits_mirror_the_source():
+    """Each flag's bit in ``ABL_BITS`` is the source's ``ABL_<FLAG>``, the
+    source has no other single bit, its ``ABL_FLOOR`` is ``FLOOR``, and the
+    masks ``gablock_forward_variant`` switches on are ``KERNEL_MASKS``."""
+    bits, enum = _abl_enum()
+    assert bits == {'ABL_' + f.upper(): b for f, b in gv.ABL_BITS.items()}
+    assert enum['ABL_FLOOR'] == sum(gv.ABL_BITS[f] for f in gv.FLOOR)
+    assert enum['ABL_FLOOR'] == gv.abl_mask(gv.FLOOR)
+    entry = (CSRC / 'gablock.cu').read_text()
+    entry = entry[entry.index('int gablock_forward_variant('):]
+    cases = re.findall(r'GB_CASE\((\w+)\)\n', entry)
+    assert len(cases) == len(gv.KERNEL_MASKS)
+    assert {0 if c == '0' else enum[c] for c in cases} == gv.KERNEL_MASKS

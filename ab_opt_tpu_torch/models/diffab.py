@@ -46,6 +46,7 @@ from ..ops.gablock import (build_encoder_weights, fused_encoder_chained,
                            gablock_layer, stack_encoder_weights)
 from ..ops.ipa_attention import ipa_attention_fwd_p2n
 from . import losses as Ls
+from ._base import register_model
 from .losses import compute_prmsd, sequence_perplexity
 
 
@@ -152,11 +153,15 @@ class DiffAbNet(nn.Module):
         return res_feat, pair_feat, R, pos[:, :, BBHeavyAtom.CA]
 
 
+@register_model('diffab')
 class DiffAb(DiffAbNet):
     """Parameters + transitions + training losses + reverse-diffusion
-    sampling."""
+    sampling. ``cfg`` may also be a config dict's model section (read by
+    :meth:`DiffAbConfig.from_dict`), as :func:`get_model` passes it."""
 
     def __init__(self, cfg: DiffAbConfig):
+        if isinstance(cfg, dict):
+            cfg = DiffAbConfig.from_dict(cfg)
         super().__init__(cfg)
         self.trans_rot = RotationTransition(cfg.num_steps)
         self.trans_pos = PositionTransition(cfg.num_steps)
@@ -382,27 +387,40 @@ class DiffAb(DiffAbNet):
         wrapper) when ``AB_OPT_FUSED_CHAIN`` is set to anything but '0' and
         there is more than one layer, as in the JAX package, or the eager
         GAEncoder in its sampling form with ``attention`` (the K4 wrapper).
-        Each may be given its plain version, for a side-by-side check."""
+        Each may be given its plain version, for a side-by-side check.
+
+        K1 and K5 take their weight bundles, ``z`` and the pair biases in
+        bf16 whatever the compute dtype, as the JAX package builds them for
+        its kernel route: whenever that route is taken, i.e. the operands
+        lie on a CUDA device or ``ipa_impl`` is ``'pallas_fused'``. The
+        ``'auto'`` route on the CPU keeps the compute dtype (JAX's einsum
+        off the accelerator). Head weights stay in the compute dtype."""
         dt = self.cfg.compute_dtype
         encoder = self.eps_net.encoder
-        biases = precompute_encoder_pair_biases(encoder, pair_feat,
-                                                mask_res[::reps], dt)
-        z = pair_feat.to(dt).contiguous()
         head_weights = precompute_head_weights(self.eps_net, dt)
         if self.cfg.ipa_impl == 'pallas':
+            biases = precompute_encoder_pair_biases(encoder, pair_feat,
+                                                    mask_res[::reps], dt)
+            z = pair_feat.to(dt).contiguous()
+
             def encoder_fn(R9, t, x, mask):
                 return encoder(R9, t, x, z, mask, reps=reps,
                                attention=attention, pair_biases=biases,
                                fuse_p2n=True)
             return encoder_fn, head_weights
 
-        bundles = build_encoder_weights(encoder, dt)
+        kernel_route = pair_feat.is_cuda or self.cfg.ipa_impl == 'pallas_fused'
+        kdt = torch.bfloat16 if kernel_route else dt
+        biases = precompute_encoder_pair_biases(encoder, pair_feat,
+                                                mask_res[::reps], kdt)
+        z = pair_feat.to(kdt).contiguous()
+        bundles = build_encoder_weights(encoder, kdt)
         mask_f = mask_res.float().contiguous()
         num_layers = self.cfg.num_layers
         if (os.environ.get('AB_OPT_FUSED_CHAIN', '0') != '0'
                 and num_layers > 1):
             stacked = stack_encoder_weights(bundles)
-            # (Nc, NL, H, L, L) in the compute dtype: bf16 for the kernel.
+            # (Nc, NL, H, L, L), bf16 on the kernel route.
             bias_st = torch.stack(biases, dim=1).contiguous()
 
             def encoder_fn(R9, t, x, mask):

@@ -80,3 +80,92 @@ def encoder_case(L, Nc, reps, layers, n_pad=0, device='cpu', H=12, seed=0):
             torch.stack(biases, 1).contiguous(),
             to(mask_c.repeat_interleave(reps, 0)), reps)
     return args, bundles, biases
+
+
+# Residue index (0-based) ranges of the synthetic complex's CA layout.
+_ROW = 12          # residues per row of a chain's snake
+_RISE = 3.8        # CA-CA along a row (A)
+_ROW_GAP = 3.9     # between rows (A): consecutive CAs stay within 4 A
+
+
+def _snake(n, origin, row_axis, col_axis):
+    """CA positions of ``n`` residues in rows of _ROW along ``row_axis``,
+    successive rows ``_ROW_GAP`` apart along ``col_axis``, boustrophedon."""
+    pts = []
+    for k in range(n):
+        row, col = divmod(k, _ROW)
+        if row % 2:
+            col = _ROW - 1 - col
+        pts.append(origin + _RISE * col * row_axis + _ROW_GAP * row * col_axis)
+    return np.asarray(pts, np.float64)
+
+
+def _backbone_atoms(ca):
+    """N, CA, C, O, CB of each CA of a chain, from the local tangent."""
+    n = len(ca)
+    prev = np.concatenate([ca[:1], ca[:-1]])
+    nxt = np.concatenate([ca[1:], ca[-1:]])
+    d = nxt - prev
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ref = np.where(np.abs(d[:, 2:3]) > 0.9, [[0.0, 1.0, 0.0]], [[0.0, 0.0, 1.0]])
+    nrm = np.cross(d, ref)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    b = np.cross(d, nrm)
+    N = ca + 1.46 * (-0.83 * d + 0.56 * nrm)
+    C = ca + 1.52 * (0.83 * d + 0.56 * nrm)
+    O = C + 1.23 * b
+    CB = ca + 1.53 * (-0.8 * nrm + 0.6 * b)
+    out = np.zeros((n, 15, 3), np.float32)
+    for j, a in enumerate((N, ca, C, O, CB)):
+        out[:, j] = a
+    return out
+
+
+def synthetic_complex(seed: int = 0, n_antigen: int = 170) -> dict:
+    """A synthetic antibody-antigen complex in Chothia numbering, as the
+    structure dict :func:`~ab_opt_tpu_torch.data.pdb.save_pdb` writes:
+    heavy chain ``H`` (resseq 1-113, CDR-H3 95-102 a hairpin rising out of
+    the heavy chain's plane), light chain ``L`` (1-107, a plane 5 A below)
+    and antigen ``A`` (``n_antigen`` residues in a vertical plane whose
+    lowest row lies 6.5 A above the hairpin's tip, so that a few
+    antigen atoms lie within DockQ's 5 A of CDR-H3). Backbone atoms and CB,
+    residue types drawn from ``seed`` (heavy 103 is Trp, as Chothia heavy
+    chains carry). The 128 residues nearest CDR-H3 are mostly antibody, so
+    a crop of 128 + 128 fills the 256 bucket and one of 20 antigen
+    residues plus the CDR fills 32."""
+    rng = np.random.default_rng(seed)
+    ex, ey, ez = np.eye(3)
+    heavy = _snake(94, np.zeros(3), ex, ey)
+    x0 = heavy[-1]
+    up = [x0 + _RISE * k * ez for k in range(1, 5)]
+    down = [x0 + _ROW_GAP * ey + _RISE * (4 - k) * ez for k in range(4)]
+    tail = _snake(11, x0 + _ROW_GAP * ey, ex, ey)
+    heavy = np.concatenate([heavy, up, down, tail])             # 113
+    light = _snake(107, np.array([0.0, 0.0, -5.0]), ex, ey)
+    tip = x0 + 4 * _RISE * ez + 0.5 * _ROW_GAP * ey
+    antigen = _snake(n_antigen, tip + np.array([-2.0 * _RISE, 0.0, 6.5]),
+                     ex, ez)
+    chains = (('H', heavy), ('L', light), ('A', antigen))
+    aa = rng.integers(0, 20, sum(len(c) for _, c in chains))
+    aa[102] = 18                                                # TRP at H103
+    if aa[113 + 102] == 18:                                     # not at L103
+        aa[113 + 102] = 5
+    pos = np.concatenate([_backbone_atoms(c) for _, c in chains])
+    mask = np.zeros(pos.shape[:2], bool)
+    mask[:, :5] = True
+    mask[aa == 5, 4] = False                                    # GLY: no CB
+    return {
+        'chain_id': [cid for cid, c in chains for _ in range(len(c))],
+        'resseq': np.concatenate([np.arange(1, len(c) + 1)
+                                  for _, c in chains]),
+        'icode': [' '] * len(aa), 'aa': aa, 'pos_heavyatom': pos,
+        'mask_heavyatom': mask,
+    }
+
+
+def write_synthetic_complex(path: str, seed: int = 0,
+                            n_antigen: int = 170) -> str:
+    """Write :func:`synthetic_complex` as a PDB file; returns ``path``."""
+    from ..data.pdb import save_pdb
+    save_pdb(synthetic_complex(seed, n_antigen), path)
+    return path

@@ -22,10 +22,10 @@ root on a machine with an NVIDIA GPU:
 
     python -m ab_opt_tpu_torch.utils.micro_attention
 
-``--launches`` prints instead, as one JSON line, the device kernels of one
-v4 call and of one v2 call at that shape under ``torch.profiler`` (a
-profiler session after another in one process may record no device
-events, so callers run it in a process of its own).
+``--launches v4`` (or ``v2``) prints instead, as one JSON line, the device
+kernels of one call of that variant at that shape under ``torch.profiler``
+(a profiler session after another in one process may record no device
+events, so each variant is profiled in a process of its own).
 """
 from __future__ import annotations
 
@@ -118,41 +118,37 @@ LABELS = {
     'sdpa': 'scaled_dot_product_attention (v3 out)'}
 
 
-def variant_launches(ops, reps):
-    """The device kernels of one v4 call and one v2 call on these CUDA
-    operands, each after a warm-up call: {'v4': [(name, count), ...],
-    'v2': [...]}."""
+def variant_launches(ops, reps, name):
+    """The device kernels of one call of variant ``name`` ('v4' or 'v2')
+    on these CUDA operands, after a warm-up call: [(name, count), ...]."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ..ops import attention_variants as av
     qa, ka, vvp, bias, z = ops
-    calls = {'v4': lambda: av.attention_v4(qa, ka, vvp, bias, z, reps),
-             'v2': lambda: av.attention_v2(qa, ka, vvp, bias, reps)}
-    found = {}
-    for name, call in calls.items():
+    call = {'v4': lambda: av.attention_v4(qa, ka, vvp, bias, z, reps),
+            'v2': lambda: av.attention_v2(qa, ka, vvp, bias, reps)}[name]
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        found[name] = [(e.key, e.count) for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and not getattr(e, 'is_user_annotation', False)]
-    return found
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)]
 
 
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('micro_attention: needs a CUDA device')
-    if '--launches' in sys.argv[1:]:
+    if sys.argv[1:2] == ['--launches']:
         torch.set_grad_enabled(False)
         ops = make_operands(REPS, REPS, LENGTH, HEADS, CZ,
                             torch.device('cuda'))
-        print(json.dumps(variant_launches(ops, REPS)))
+        print(json.dumps(variant_launches(ops, REPS, sys.argv[2])))
         return
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,

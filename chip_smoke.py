@@ -131,6 +131,31 @@ Phases, each fatal on failure:
      profiled time of the K1 launches it touches; the plain time, K1's
      bound (the same work); then K1 against v3 at each rt, medians of
      alternated rounds.
+ 13. the design runner, PDB to PDB (runners/design.py): the DockQ contact
+     kernel (tools/dockq/fnat_kernel.cc, built with g++) must load and
+     count every contact set of the in-process requests' scores; a
+     synthetic Chothia complex is written with the port's save_pdb (heavy
+     H 1-113, CDR-H3 95-102; light L 1-107; a 170-residue antigen A, its
+     nearest residues 6.8 A from CDR-H3's CA atoms); then four requests
+     through design_for_pdb, the model's weights drawn from the seed:
+     configs/test/codesign_single.yml (float32, as the port's load_config
+     reads it) at 256 samples in one sampler call on K1 (crop L=256), the
+     same on K5 (AB_OPT_FUSED_CHAIN=1), abopt_singlecdr at 16 samples
+     (five opt steps), and dock_cdr at 16 samples (crop L=32) through
+     python -m ab_opt_tpu_torch.runners.design_cli in a child process
+     (renumbering on: the passthrough check). Each must write the file
+     tree of tests/test_runner.py for every variant, finite scores in
+     results.csv, every sample's context residues equal to the native
+     patch REF1.pdb at the PDB's 3 decimals, and per sampler call K1 at
+     6 x steps launches (K5 at steps on the chained request, no other
+     encoder kernel), as the runner's log lines record them. The model,
+     crop and fan-out of the K1 request's sampler call go through one
+     denoiser evaluation at that fan-out (256 x L=256) through K1 and
+     through K5, each against the same route's plain version (bf16
+     operands) within DENOISER_TOL. The four stage times (sample,
+     paste_io, dockq, rank) and the in-process requests' samples/s are
+     printed with the card's name and power limit (the CLI's sample stage
+     is its process's first sampler call, start-up included: no rate).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds.
 
@@ -140,6 +165,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -232,6 +258,13 @@ K1_ITERS = 20
 LOSS_RTOL = 1e-3          # each loss, relative
 GRAD_COS = 0.999          # cosine of the flattened gradients
 GRAD_NORM_RTOL = 0.01     # global gradient norms, relative
+# The design phase: the repo's own test configs through the design runner
+# on a synthetic Chothia complex (heavy H, light L, antigen A; the crop of
+# codesign_single fills the 256 bucket, dock_cdr's the 32 one). Outputs go
+# under the gitignored results/ of the checkout.
+DESIGN_SAMPLES = 256      # codesign_single, K1 and K5 requests, one call
+DESIGN_SMALL = 16         # abopt_singlecdr and dock_cdr (the CLI)
+DESIGN_OUT = Path(__file__).resolve().parent / 'results' / 'chip_smoke'
 # H100 SXM peaks (NVIDIA data sheet): the bf16 dense tensor-core rate (the
 # kernels' inputs are bf16 on the timed paths) and the HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -1365,16 +1398,16 @@ def phase_variants(device):
         if timed is None:
             timed = (N, reps, Ln, ops, outputs, k2, k4)
 
-    # One call of each of S3 and S2 is one kernel: in a process of its own
-    # (phase 3's profiler session leaves later ones here without device
-    # events).
-    child = subprocess.run(
-        [sys.executable, '-m', 'ab_opt_tpu_torch.utils.micro_attention',
-         '--launches'], capture_output=True, text=True, check=True)
-    launched = json.loads(child.stdout.strip().splitlines()[-1])
-    print(f'one call under torch.profiler (N=256, L={L}, H={H}): {launched}')
+    # One call of each of S3 and S2 is one kernel: each in a process of its
+    # own (a profiler session after another in one process may record no
+    # device events).
     for name, kernel in (('v4', 's3_kernel'), ('v2', 's2_kernel')):
-        kernels = launched[name]
+        child = subprocess.run(
+            [sys.executable, '-m', 'ab_opt_tpu_torch.utils.micro_attention',
+             '--launches', name], capture_output=True, text=True, check=True)
+        kernels = json.loads(child.stdout.strip().splitlines()[-1])
+        print(f'one {name} call under torch.profiler (N=256, L={L}, H={H}): '
+              f'{kernels}')
         if sum(n for _, n in kernels) != 1 or kernel not in kernels[0][0]:
             raise SystemExit(f'a {name} call is not exactly one device '
                              'kernel')
@@ -1535,6 +1568,245 @@ def phase_fused_variants(device, k1_rows):
     return res
 
 
+_STAGE_LOG = re.compile(
+    r'variant (\S+) timing \((\d+) samples\): sample=([\d.]+)s '
+    r'paste\+io=([\d.]+)s dockq=([\d.]+)s rank=([\d.]+)s total=([\d.]+)s')
+_LAUNCH_LOG = re.compile(r'variant (\S+) kernel launches: (.*)')
+
+
+def _stages_from_log(text):
+    """design_for_structure's per-variant log lines as {tag: {'sample',
+    'paste_io', 'dockq', 'rank', 'total', 'samples', 'launches'}}."""
+    stage = {}
+    for m in _STAGE_LOG.finditer(text):
+        keys = ('sample', 'paste_io', 'dockq', 'rank', 'total')
+        stage[m.group(1)] = dict(zip(keys, map(float, m.groups()[2:])),
+                                 samples=int(m.group(2)))
+    for m in _LAUNCH_LOG.finditer(text):
+        stage[m.group(1)]['launches'] = {
+            k: int(v) for k, v in (kv.split('=') for kv in m.group(2).split())}
+    return stage
+
+
+def _stage_text(t, cold):
+    """One request's four stage times; ``cold``: its sample stage is a
+    fresh process's first sampler call (start-up included), so no rate."""
+    rate = ('the child\'s first sampler call, start-up included' if cold
+            else f'{t["samples"] / t["sample"]:.3f} samples/s')
+    return (f'sample {t["sample"]:.3f} s ({rate}), paste_io '
+            f'{t["paste_io"]:.3f} s, dockq {t["dockq"]:.3f} s, rank '
+            f'{t["rank"]:.3f} s')
+
+
+def _check_design(name, out_dir, stage, launches_of, steps_of, cold=False):
+    """The file tree of tests/test_runner.py for every variant, every score
+    of results.csv finite, every sample's context residues (all but the
+    generated ones) equal to the native patch REF1.pdb at the PDB's 3
+    decimals, and each variant's kernel launches (one sampler call a
+    variant) equal to ``launches_of(variant)``."""
+    import csv
+    import numpy as np
+    from ab_opt_tpu_torch.data import parse_pdb
+    meta = json.loads((out_dir / 'metadata.json').read_text())
+    problems = []
+    if sorted(stage) != sorted(it['tag'] for it in meta['items']):
+        raise SystemExit(f'design request {name}: the log timed variants '
+                         f'{sorted(stage)}, metadata.json lists '
+                         f'{[it["tag"] for it in meta["items"]]}')
+    for item in meta['items']:
+        tag, st = item['tag'], stage[item['tag']]
+        vdir = out_dir / tag
+        samples = sorted(vdir.glob('[0-9][0-9][0-9][0-9].pdb'))
+        if len(samples) != st['samples'] or not (vdir / 'REF1.pdb').exists():
+            problems.append(f'{tag}: {len(samples)} sample PDBs')
+        ref, _ = parse_pdb(str(vdir / 'REF1.pdb'))
+        first, last = item['residue_first'], item['residue_last']
+        gen = np.array([c == first[0] and first[1] <= r <= last[1]
+                        for c, r in zip(ref['chain_id'], ref['resseq'])])
+        ctx = ~gen
+        for f in samples:
+            got, _ = parse_pdb(str(f))
+            same = (got['chain_id'] == ref['chain_id']
+                    and np.array_equal(got['resseq'], ref['resseq'])
+                    and np.array_equal(got['aa'][ctx], ref['aa'][ctx])
+                    and np.array_equal(got['mask_heavyatom'][ctx],
+                                       ref['mask_heavyatom'][ctx])
+                    and np.array_equal(got['pos_heavyatom'][ctx],
+                                       ref['pos_heavyatom'][ctx]))
+            if not same:
+                problems.append(f'{tag}/{f.name}: context differs from REF1')
+        want = launches_of(item)
+        if st['launches'] != want:
+            problems.append(f'{tag}: launches {st["launches"]}, want {want}')
+    rows = list(csv.reader((out_dir / 'results.csv').open()))
+    cells = [c for r in rows[1:] for c in r[1:]]
+    bad = [c for c in cells if not math.isfinite(float(c or 'nan'))]
+    if bad or len(rows) != len(meta['items']) + 1:
+        problems.append(f'results.csv: {len(rows) - 1} rows, non-finite {bad}')
+    for f in ('aa.csv', 'traj.pdb'):
+        if not (out_dir / f).exists():
+            problems.append(f'{f} missing')
+    models = (out_dir / 'traj.pdb').read_text().count('MODEL ')
+    if models != steps_of(meta['items'][-1]):
+        problems.append(f'traj.pdb: {models} models')
+    total = {k: sum(v[k] for v in stage.values())
+             for k in ('sample', 'paste_io', 'dockq', 'rank', 'samples')}
+    print(f'design request {name}: {len(meta["items"])} variant(s), '
+          f'{total["samples"]} samples: stages {_stage_text(total, cold)}; '
+          f'launches {[v["launches"] for v in stage.values()]}; '
+          f'{"checks passed" if not problems else problems[:5]}')
+    if problems:
+        raise SystemExit(f'design request {name} failed its checks')
+    return total
+
+
+def _check_crop_denoiser(sampled, device):
+    """One denoiser evaluation of the model and crop that the K1 request
+    sampled (``sampled``: its sampler call's model, collated batch and
+    fan-out), at that fan-out, through K1 and through K5, each against the
+    same route's plain version (bf16 operands) within DENOISER_TOL."""
+    from ab_opt_tpu_torch.data.collate import to_device_batch
+    from ab_opt_tpu_torch.ops import gablock
+    model, single, reps = sampled
+    if model.cfg.dtype != 'float32' or reps != DESIGN_SAMPLES:
+        raise SystemExit(f'the K1 request sampled a {model.cfg.dtype} model '
+                         f'at fan-out {reps}')
+    batch = to_device_batch(single, device)
+    Lc, n_res = batch['aa'].shape[1], int(batch['mask'].sum())
+    plains = (('K1', {'layer': gablock.gablock_layer_reference}),
+              ('K5', {'chain': gablock.fused_encoder_chained_reference}))
+    for route, plain in plains:
+        if route == 'K5':
+            os.environ['AB_OPT_FUSED_CHAIN'] = '1'
+        d = _denoiser_check(model, batch, plain, reps=reps)
+        os.environ.pop('AB_OPT_FUSED_CHAIN', None)
+        print(f'denoiser step, float32 codesign_single model on its sampled '
+              f'crop (L={Lc}, {n_res} residues, reps={reps}), {route} vs '
+              f'plain (bf16 operands): max |d eps_pos|={d[0]:.5f}, max '
+              f'|d R_next|={d[1]:.5f}, max |d seq probs|={d[2]:.5f}')
+        if not max(d) < DENOISER_TOL:
+            raise SystemExit(f'float32 denoiser through {route} disagrees '
+                             'with the plain route')
+
+
+def phase_design(device, smi):
+    """The design runner (see the module docstring, phase 13)."""
+    import io
+    import logging
+    from ab_opt_tpu_torch.ops import gablock
+    from ab_opt_tpu_torch.runners import design as D
+    from ab_opt_tpu_torch.tools.dockq import dockq as Q
+    from ab_opt_tpu_torch.utils.bench_fixture import write_synthetic_complex
+    from ab_opt_tpu_torch.utils.config import load_config
+    t0 = time.perf_counter()
+    if Q.native_library() is None:
+        raise SystemExit('the DockQ contact kernel (tools/dockq/'
+                         'fnat_kernel.cc) did not build or load')
+    print(f'DockQ contact kernel: {Q.library_path().name} loaded')
+    shutil.rmtree(DESIGN_OUT, ignore_errors=True)
+    DESIGN_OUT.mkdir(parents=True)
+    pdb = write_synthetic_complex(str(DESIGN_OUT / 'cx.pdb'))
+    repo = Path(__file__).resolve().parent
+    cfg = lambda name: dict(load_config(str(repo / 'configs' / 'test' /
+                                            f'{name}.yml'))[0])
+    codesign = cfg('codesign_single')
+    T = codesign['model']['diffusion']['num_steps']
+    NL = codesign['model']['diffusion']['eps_net_opt']['num_layers']
+    k1 = lambda steps: {'K1': NL * steps, 'K5': 0, 'K4': 0}
+    k5 = lambda steps: {'K1': 0, 'K5': steps, 'K4': 0}
+    requests = (
+        ('codesign_single, K1', 'codesign_single', DESIGN_SAMPLES, None,
+         lambda it: k1(T), lambda it: T),
+        ('codesign_single, K5', 'codesign_single', DESIGN_SAMPLES, '1',
+         lambda it: k5(T), lambda it: T),
+        ('abopt_singlecdr', 'abopt_singlecdr', DESIGN_SMALL, None,
+         lambda it: k1(it['opt_step']), lambda it: it['opt_step']))
+    # The in-process requests' stage and launch records: the runner's own
+    # log lines, read as the CLI child's stderr is.
+    log = io.StringIO()
+    handler = logging.StreamHandler(log)
+    runner_log = logging.getLogger(D.__name__)
+    level = runner_log.level
+    runner_log.addHandler(handler)
+    runner_log.setLevel(logging.INFO)
+    # The K1 request's sampler call: its model, crop and fan-out.
+    sampled = []
+    sampler_call = D.BatchedSampler.__call__
+
+    def recording_call(self, batch, seed, num_replicas=1):
+        sampled.append((self.model, batch, num_replicas))
+        return sampler_call(self, batch, seed, num_replicas)
+
+    saved = os.environ.pop('AB_OPT_FUSED_CHAIN', None)
+    try:
+        gablock.reset_counts()
+        contacts = Q._contacts.native_calls
+        totals = {}
+        for i, (name, conf, n, chain, launches_of, steps_of) in enumerate(
+                requests):
+            if chain:
+                os.environ['AB_OPT_FUSED_CHAIN'] = chain
+            if i == 0:
+                D.BatchedSampler.__call__ = recording_call
+            log.seek(0)
+            log.truncate()
+            t1 = time.perf_counter()
+            D.design_for_pdb(D.DesignArgs(
+                pdb_path=pdb, config=cfg(conf), num_samples=n, batch_size=n,
+                topk=4, seed=i, out_root=str(DESIGN_OUT / f'r{i + 1}')))
+            wall = time.perf_counter() - t1
+            D.BatchedSampler.__call__ = sampler_call
+            os.environ.pop('AB_OPT_FUSED_CHAIN', None)
+            totals[name] = _check_design(
+                name, DESIGN_OUT / f'r{i + 1}' / 'cx.pdb',
+                _stages_from_log(log.getvalue()), launches_of, steps_of)
+            print(f'  wall {wall:.3f} s ({smi})')
+        # calc_dockq counts contacts three times a sample (5 A on the model
+        # and the native, 10 A on the native), all through the kernel.
+        contacts = Q._contacts.native_calls - contacts
+        scored = sum(t['samples'] for t in totals.values())
+        print(f'DockQ contact kernel calls: {contacts} for {scored} samples')
+        if contacts != 3 * scored:
+            raise SystemExit('DockQ did not count every contact set with '
+                             'the native kernel')
+        if len(sampled) != 1:
+            raise SystemExit(f'the K1 request made {len(sampled)} sampler '
+                             'calls, not one')
+        _check_crop_denoiser(sampled.pop(), device)
+
+        # dock_cdr through the CLI, as a user runs it (renumbering on).
+        env = {k: v for k, v in os.environ.items()
+               if k != 'AB_OPT_FUSED_CHAIN'}
+        t1 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, '-m', 'ab_opt_tpu_torch.runners.design_cli',
+             '--pdb_path', pdb, '-c', str(repo / 'configs' / 'test' /
+                                          'dock_cdr.yml'),
+             '-n', str(DESIGN_SMALL), '-b', str(DESIGN_SMALL), '--topk', '4',
+             '-o', str(DESIGN_OUT / 'r4')], cwd=str(repo), env=env,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t1
+        if child.returncode != 0:
+            print(child.stderr[-4000:])
+            raise SystemExit(f'design_cli exited {child.returncode}')
+        totals['dock_cdr (CLI)'] = _check_design(
+            'dock_cdr (CLI)', DESIGN_OUT / 'r4' / 'cx.pdb',
+            _stages_from_log(child.stderr), lambda it: k1(T),
+            lambda it: T, cold=True)
+        print(f'  wall {wall:.3f} s, the child process included ({smi})')
+    finally:
+        D.BatchedSampler.__call__ = sampler_call
+        runner_log.removeHandler(handler)
+        runner_log.setLevel(level)
+        os.environ.pop('AB_OPT_FUSED_CHAIN', None)
+        if saved is not None:
+            os.environ['AB_OPT_FUSED_CHAIN'] = saved
+    print(f'design stages ({smi}): ' + '; '.join(
+        f'{name}: {_stage_text(t, name.endswith("(CLI)"))}'
+        for name, t in totals.items()))
+    print(f'phase 13: {time.perf_counter() - t0:.2f} s')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1569,6 +1841,7 @@ def main():
     k5 = phase_chain(model, batch, k1_rates)
     variants = phase_variants(device)
     fused = phase_fused_variants(device, k1_rows)
+    phase_design(device, smi.stdout.strip())
 
     kernels = [dict(
         name='gablock', route='cuda', source='ab_opt_tpu_torch/csrc/gablock.cu',

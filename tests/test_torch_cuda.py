@@ -1,7 +1,8 @@
 """The GABlock kernel (K1, its attention, p2n and GEMM launches alone too), the
 IPA attention kernels (K2, K3, K4), the chained encoder kernel (K5), the
 attention variants (S1-S3) and the fused-GABlock variants (S4)
-against their plain versions, on an NVIDIA GPU (marker
+against their plain versions, a float32 config's denoiser through K1 and
+K5, and the design runner, on an NVIDIA GPU (marker
 ``cuda``; skips without a card). Imports no JAX, so it also runs where only
 the port is installed:
 
@@ -781,3 +782,94 @@ def test_gablock_variant_refusals_on_card():
     with pytest.raises(ValueError, match='rt=3 must divide'):
         gv.gablock_layer_v3(*args, rt=3)
     assert gv.launches == {'v3': 0, 'abl': 0}
+
+
+def _f32_denoiser(route, monkeypatch, L=64, reps=4):
+    """One denoiser evaluation of a float32 DiffAbConfig() model (full
+    widths, six layers) through K1 (``route='k1'``) or K5 (``'k5'``) and
+    through the same route's plain version, on one synthetic complex;
+    returns both outputs and the kernel's launches."""
+    import numpy as np
+    from ab_opt_tpu_torch.geometry import rotation_to_so3vec
+    from ab_opt_tpu_torch.models import DiffAb, DiffAbConfig
+    from ab_opt_tpu_torch.utils.bench_fixture import synthetic_batch
+    if route == 'k5':
+        monkeypatch.setenv('AB_OPT_FUSED_CHAIN', '1')
+        plain = {'chain': gb.fused_encoder_chained_reference}
+    else:
+        monkeypatch.delenv('AB_OPT_FUSED_CHAIN', raising=False)
+        plain = {'layer': gb.gablock_layer_reference}
+    dev = torch.device('cuda')
+    torch.manual_seed(0)
+    model = DiffAb(DiffAbConfig()).to(dev)
+    assert model.cfg.dtype == 'float32'
+    batch = synthetic_batch(np.random.default_rng(0), N=1, L=L, n_ab=40,
+                            gen_lo=16, gen_hi=24, device=dev)
+    rep = lambda a: a.repeat_interleave(reps, 0)
+    gb.reset_counts()
+    outs = []
+    with torch.no_grad():
+        res_feat, pair_feat, R0, p0 = model.encode(batch, True, True)
+        gen, mres = rep(batch['generate_flag']), rep(batch['mask'])
+        v = rotation_to_so3vec(rep(R0))
+        p = model.normalize_position(rep(p0))
+        beta = torch.full((reps,), 0.05, device=dev)
+        for kw in ({}, plain):
+            enc, hw = model.prepare_denoiser(pair_feat, mres, reps, **kw)
+            outs.append(model.eps_net(v, p, rep(batch['aa']), rep(res_feat),
+                                      pair_feat, beta, gen, mres, reps=reps,
+                                      encoder_fn=enc, head_weights=hw))
+    torch.cuda.synchronize()
+    launches = (gb.fused_encoder_chained.launches if route == 'k5'
+                else gb.gablock_layer.launches)
+    return outs, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('route', ['k1', 'k5'])
+def test_float32_config_denoiser_on_card(route, monkeypatch):
+    """A float32 config's sampler takes K1/K5 with bf16 operands (the JAX
+    kernel route's): the denoiser through the kernel within 0.03 of the
+    same route's plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    (got, want), launches = _f32_denoiser(route, monkeypatch)
+    assert launches == (1 if route == 'k5' else 6)
+    for i in (1, 2, 3):   # R_next, eps_pos, c_denoised
+        assert torch.isfinite(got[i]).all()
+        assert float((got[i].float() - want[i].float()).abs().max()) < 0.03
+
+
+@pytest.mark.cuda
+def test_design_runner_on_card(tmp_path):
+    """design_for_pdb on the card at full widths, two layers and four steps
+    (docking crop, L=32): the runner's file tree, finite scores, and K1 at
+    steps x layers launches a sampler call."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    import math
+    import os
+    from ab_opt_tpu_torch.runners.design import DesignArgs, design_for_pdb
+    from ab_opt_tpu_torch.utils.bench_fixture import write_synthetic_complex
+    pdb = write_synthetic_complex(str(tmp_path / 'cx.pdb'))
+    cfg = {'mode': 'single_cdr',
+           'sampling': {'cdrs': ['H_CDR3'], 'sample_structure': True,
+                        'sample_sequence': True},
+           'model': {'initial_patch_size': 0, 'antigen_size': 20,
+                     'remove_anchor': True,
+                     'diffusion': {'num_steps': 4,
+                                   'eps_net_opt': {'num_layers': 2}}}}
+    gb.reset_counts()
+    res = design_for_pdb(DesignArgs(pdb_path=pdb, config=cfg, num_samples=6,
+                                    batch_size=4, topk=2,
+                                    out_root=str(tmp_path / 'out')))
+    assert gb.gablock_layer.launches == 2 * 4 * 2
+    assert gb.gablock_layer_reference.calls == 0
+    summ = res['H_CDR3']
+    for k in ('DockQ_mean', 'AAR_mean', 'prmsd_mean', 'irms_mean'):
+        assert math.isfinite(summ[k]), k
+    out = tmp_path / 'out' / 'cx.pdb'
+    for f in ('H_CDR3/REF1.pdb', 'H_CDR3/0000.pdb', 'H_CDR3/0005.pdb',
+              'results.csv', 'aa.csv', 'traj.pdb'):
+        assert os.path.exists(out / f), f
+    assert (out / 'traj.pdb').read_text().count('MODEL ') == 4

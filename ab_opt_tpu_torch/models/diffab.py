@@ -23,12 +23,15 @@ and more than one layer, the whole encoder of a step through one
 :func:`ab_opt_tpu_torch.ops.gablock.fused_encoder_chained` call (K5);
 ``'pallas'`` runs
 the eager GAEncoder in its sampling form, whose attention is
-:func:`ab_opt_tpu_torch.ops.ipa_attention.ipa_attention_fwd_p2n` (K4). Each
-is the Hopper kernel for CUDA tensors, its plain version for CPU tensors.
+:func:`ab_opt_tpu_torch.ops.ipa_attention.ipa_attention_fwd_p2n` (K4), as
+does ``'auto'`` on the card for a crop longer than K1 takes
+(:func:`encoder_route`). Each is the Hopper kernel for CUDA tensors, its
+plain version for CPU tensors.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 from typing import Any, Dict, Optional, Tuple
 
@@ -42,6 +45,7 @@ from ..geometry import (construct_3d_basis, random_uniform_so3,
 from ..nn import EpsilonNet, PairEmbedding, ResidueEmbedding
 from ..nn.epsilon_net import precompute_head_weights
 from ..nn.ipa import precompute_encoder_pair_biases
+from ..ops.gablock import MAX_L as FUSED_MAX_L
 from ..ops.gablock import (build_encoder_weights, fused_encoder_chained,
                            gablock_layer, stack_encoder_weights)
 from ..ops.ipa_attention import ipa_attention_fwd_p2n
@@ -53,8 +57,40 @@ from .losses import compute_prmsd, sequence_perplexity
 # The sampler's encoder routes: the per-layer GABlock kernel (K1), or the
 # chained whole-encoder kernel (K5) under AB_OPT_FUSED_CHAIN, for 'auto'
 # and 'pallas_fused'; the eager GAEncoder over the attention kernel
-# with in-kernel pair aggregation (K4) for 'pallas'.
+# with in-kernel pair aggregation (K4) for 'pallas', and for 'auto' on the
+# card past FUSED_MAX_L (see encoder_route).
 IPA_IMPLS = ('auto', 'pallas_fused', 'pallas')
+# FUSED_MAX_L, the longest crop K1 and K5 take: the JAX package has no
+# fused-layer plan past it either, its working-set model at L=320 and one
+# replica a cell being ~31.9 MB against the 24 MB scoped-VMEM budget
+# (ab_opt_tpu/ops/gablock_pallas.py::_vmem_estimate_bytes).
+
+logger = logging.getLogger(__name__)
+
+
+def encoder_route(ipa_impl: str, is_cuda: bool, L: int, chain: bool) -> str:
+    """The kernel the sampler's encoder runs through, a pure function of
+    the config's ``ipa_impl``, whether the operands lie on the card, the
+    crop length ``L`` and whether ``AB_OPT_FUSED_CHAIN`` asks for the
+    chained encoder (``chain``; taken with more than one layer): ``'k1'``
+    (one GABlock launch a layer), ``'k5'`` (the whole encoder in one
+    launch) or ``'k4'`` (the eager GAEncoder over the attention kernel with
+    the pair aggregation). On the CPU each wrapper takes its plain version.
+
+    ``'auto'`` on the card past ``FUSED_MAX_L`` takes K4, which runs its
+    CUDA-core tiles at any L up to 512; on the CPU ``'auto'`` keeps K1's
+    (or K5's) plain version at any L. ``'pallas_fused'`` past
+    ``FUSED_MAX_L`` raises: no fused-layer plan fits there."""
+    if ipa_impl == 'pallas' or (ipa_impl == 'auto' and is_cuda
+                                and L > FUSED_MAX_L):
+        return 'k4'
+    if ipa_impl == 'pallas_fused' and L > FUSED_MAX_L:
+        raise ValueError(
+            f"ipa_impl='pallas_fused' at L={L}: the fused GABlock kernels "
+            f"(K1, K5) take L up to {FUSED_MAX_L}; use ipa_impl='auto', "
+            f"which takes the K4 route past {FUSED_MAX_L} on the card, or "
+            f"'pallas'")
+    return 'k5' if chain else 'k1'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -381,13 +417,14 @@ class DiffAb(DiffAbNet):
         """The step-invariant operands of the denoiser, built once per
         sampling call: returns ``(encoder_fn, head_weights)`` for
         :meth:`EpsilonNet.forward`. ``encoder_fn`` runs the encoder by the
-        config's route with the per-layer pair biases (and, for K1 and K5,
-        weight bundles) closed over: every GABlock layer through ``layer``
-        (the K1 wrapper), the whole stack in one ``chain`` call (the K5
-        wrapper) when ``AB_OPT_FUSED_CHAIN`` is set to anything but '0' and
-        there is more than one layer, as in the JAX package, or the eager
-        GAEncoder in its sampling form with ``attention`` (the K4 wrapper).
-        Each may be given its plain version, for a side-by-side check.
+        route :func:`encoder_route` picks (logged once a call) with the
+        per-layer pair biases (and, for K1 and K5, weight bundles) closed
+        over: every GABlock layer through ``layer`` (the K1 wrapper), the
+        whole stack in one ``chain`` call (the K5 wrapper) when
+        ``AB_OPT_FUSED_CHAIN`` is set to anything but '0' and there is more
+        than one layer, as in the JAX package, or the eager GAEncoder in its
+        sampling form with ``attention`` (the K4 wrapper), in the compute
+        dtype. Each may be given its plain version, for a side-by-side check.
 
         K1 and K5 take their weight bundles, ``z`` and the pair biases in
         bf16 whatever the compute dtype, as the JAX package builds them for
@@ -398,7 +435,15 @@ class DiffAb(DiffAbNet):
         dt = self.cfg.compute_dtype
         encoder = self.eps_net.encoder
         head_weights = precompute_head_weights(self.eps_net, dt)
-        if self.cfg.ipa_impl == 'pallas':
+        num_layers = self.cfg.num_layers
+        chain_env = os.environ.get('AB_OPT_FUSED_CHAIN', '0') != '0'
+        route = encoder_route(self.cfg.ipa_impl, pair_feat.is_cuda,
+                              pair_feat.shape[1],
+                              chain_env and num_layers > 1)
+        logger.info('encoder route %s (ipa_impl=%s, L=%d, %s, %s)', route,
+                    self.cfg.ipa_impl, pair_feat.shape[1],
+                    pair_feat.device.type, self.cfg.dtype)
+        if route == 'k4':
             biases = precompute_encoder_pair_biases(encoder, pair_feat,
                                                     mask_res[::reps], dt)
             z = pair_feat.to(dt).contiguous()
@@ -416,9 +461,7 @@ class DiffAb(DiffAbNet):
         z = pair_feat.to(kdt).contiguous()
         bundles = build_encoder_weights(encoder, kdt)
         mask_f = mask_res.float().contiguous()
-        num_layers = self.cfg.num_layers
-        if (os.environ.get('AB_OPT_FUSED_CHAIN', '0') != '0'
-                and num_layers > 1):
+        if route == 'k5':
             stacked = stack_encoder_weights(bundles)
             # (Nc, NL, H, L, L), bf16 on the kernel route.
             bias_st = torch.stack(biases, dim=1).contiguous()

@@ -49,6 +49,9 @@ from . import build
 _SRC = build.CSRC_DIR / 'gablock.cu'
 _CHAIN_SRC = build.CSRC_DIR / 'gablock_chain.cu'
 _LN_EPS = 1e-10
+# The longest crop K1 and K5 take (L a multiple of 16); the sampler takes
+# K4's route past it (models/diffab.py::encoder_route).
+MAX_L = 256
 
 
 # ------------------------------------------------------------ weight prep
@@ -380,8 +383,8 @@ def _expected(x, R9, t, z, mask, wb, reps: int, lead=(),
     req(x.dim() == 3, 'x must be (N, L, F)')
     N, L, F = x.shape
     req(F == 128, lambda: f'node width {F} (kernel takes 128)')
-    req(L % 16 == 0 and 16 <= L <= 256,
-        lambda: f'L={L} (multiple of 16, <=256)')
+    req(L % 16 == 0 and 16 <= L <= MAX_L,
+        lambda: f'L={L} (multiple of 16, <={MAX_L})')
     req(reps >= 1 and N % reps == 0,
         lambda: f'reps={reps} must divide N={N}')
     Nc = N // reps
@@ -501,8 +504,8 @@ def gablock_attention(qa, ka, vv, bias, reps: int = 1):
              'qa must be (N, L, H*64)', who)
     N, L, HD = qa.shape
     H = HD // 64
-    _require(L % 16 == 0 and 16 <= L <= 256, f'L={L} (multiple of 16, <=256)',
-             who)
+    _require(L % 16 == 0 and 16 <= L <= MAX_L,
+             f'L={L} (multiple of 16, <={MAX_L})', who)
     _require(reps >= 1 and N % reps == 0, f'reps={reps} must divide N={N}',
              who)
     bf16 = torch.bfloat16
@@ -540,8 +543,8 @@ def gablock_p2n(alpha, z, reps: int = 1):
     _require(alpha.dim() == 4 and z.dim() == 4,
              'alpha must be (Nc, L, reps*H, L) and z (Nc, L, L, 64)', who)
     Nc, L, RH, _ = alpha.shape
-    _require(L % 16 == 0 and 16 <= L <= 256, f'L={L} (multiple of 16, <=256)',
-             who)
+    _require(L % 16 == 0 and 16 <= L <= MAX_L,
+             f'L={L} (multiple of 16, <={MAX_L})', who)
     _require(reps >= 1 and RH % reps == 0, f'reps={reps} must divide {RH}',
              who)
     bf16 = torch.bfloat16

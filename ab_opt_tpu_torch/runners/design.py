@@ -21,9 +21,7 @@ import dataclasses
 import json
 import logging
 import os
-import pickle
 import time
-import zipfile
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -42,6 +40,7 @@ from ..ops.gablock import fused_encoder_chained, gablock_layer
 from ..ops.ipa_attention import ipa_attention_fwd_p2n
 from ..parallel.mesh import replicate_batch
 from ..tools.dockq import calc_dockq
+from ..train.checkpoint import read_weights
 from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -178,55 +177,11 @@ def random_model(model_cfg: Dict, seed: int) -> DiffAb:
         return get_model(model_cfg)
 
 
-class _Opaque(tuple):
-    """Stands in, when a JAX checkpoint is read, for a class of the JAX
-    stack (optimizer states); inference never reads those parts."""
-
-    def __new__(cls, *args, **kwargs):
-        return tuple.__new__(cls, args)
-
-    def __setstate__(self, state):
-        pass
-
-
-class _JaxCheckpointUnpickler(pickle.Unpickler):
-    """Reads a JAX checkpoint (a pickle of numpy trees) without importing
-    JAX or the JAX package: its ConfigDict becomes the port's, and the
-    JAX stack's own classes become :class:`_Opaque`."""
-
-    def find_class(self, module, name):
-        from ..utils.config import ConfigDict
-        top = module.split('.')[0]
-        if module == 'ab_opt_tpu.utils.config' and name == 'ConfigDict':
-            return ConfigDict
-        if top == 'ab_opt_tpu':
-            raise pickle.UnpicklingError(
-                f'the checkpoint holds {module}.{name}, which the port '
-                'cannot read')
-        if top in ('jax', 'jaxlib', 'flax', 'optax', 'chex'):
-            return _Opaque
-        return super().find_class(module, name)
-
-
-def _read_checkpoint(path: str) -> Dict:
-    """``{'config', 'state_dict'}`` of a port checkpoint (a torch.save zip)
-    or a JAX one (a pickle; its params go through the weight bridge)."""
-    from ..utils.convert import params_to_state_dict
-    if zipfile.is_zipfile(path):
-        from ..train.checkpoint import load_checkpoint
-        saved = load_checkpoint(path)
-        return {'config': saved['config'], 'state_dict': saved['model']}
-    with open(path, 'rb') as f:
-        saved = _JaxCheckpointUnpickler(f).load()
-    return {'config': saved['config'],
-            'state_dict': params_to_state_dict(saved['params'])}
-
-
 def load_model_from_checkpoint(ckpt_path: str):
     """Rebuild the architecture from the checkpoint's embedded config and
     load its weights; returns ``(model, config)``. Reads port checkpoints
     and JAX ones."""
-    saved = _read_checkpoint(ckpt_path)
+    saved = read_weights(ckpt_path)
     config = saved['config'] or {}
     model_cfg = dict(config.get('model', {'type': 'diffab'}))
     model_cfg.setdefault('type', 'diffab')

@@ -8,7 +8,9 @@ train step of ``ab_opt_tpu/parallel/mesh.py::sharded_train_step``):
 * checkpoints that carry the config and resume with the optimizer state.
 
 The trainer runs on the CUDA card unless the caller asks for the CPU; the
-model's IPA attention then runs through the K2/K3 kernels.
+model's IPA attention then runs through the K2/K3 kernels, and the
+sampling-in-the-loop validation (:mod:`.sampling_eval`) through the
+sampler's encoder kernel (K1, or K4 past 256 residues).
 """
 from __future__ import annotations
 
@@ -17,14 +19,15 @@ import os
 import pickle
 import time
 from collections import deque
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
 from ..data.collate import to_device_batch
 from ..utils.device import resolve_device
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import (load_checkpoint, read_weights, require_resumable,
+                         save_checkpoint)
 
 logger = logging.getLogger(__name__)
 
@@ -136,10 +139,15 @@ class Trainer:
 
     def resume(self, ckpt_path: str, finetune: bool = False):
         """Restore the weights; unless ``finetune``, also the optimizer
-        state, the iteration and the learning rate."""
-        saved = load_checkpoint(ckpt_path)
-        self.model.load_state_dict(saved['model'])
-        if not finetune:
+        state, the iteration and the learning rate. ``finetune`` also takes
+        a JAX checkpoint (its params through the weight bridge); resuming
+        one raises, since its optax state has no counterpart here."""
+        if finetune:
+            self.model.load_state_dict(read_weights(ckpt_path)['state_dict'])
+        else:
+            require_resumable(ckpt_path)
+            saved = load_checkpoint(ckpt_path)
+            self.model.load_state_dict(saved['model'])
             if saved.get('optimizer') is not None:
                 self.optimizer.load_state_dict(saved['optimizer'])
             self.iteration = int(saved.get('iteration', 0))
@@ -232,22 +240,70 @@ class Trainer:
                 self._set_lr(new_lr)
         return avg
 
+    def _sampling_eval(self, items, num_samples, seed, tracker) -> Dict:
+        """Design the val items, log per-CDR RMSD/AAR, update the best
+        checkpoint."""
+        from .sampling_eval import evaluate_samples
+        out_dir = (os.path.join(self.log_dir, 'sampling_eval',
+                                f'it{self.iteration}')
+                   if self.log_dir else None)
+        metrics = evaluate_samples(self.model, items, seed,
+                                   num_samples=num_samples, out_dir=out_dir,
+                                   device=self.device)
+        logger.info('sampling eval it %d | %s', self.iteration,
+                    ' '.join(f'{k}={v:.4f}' for k, v in metrics.items()
+                             if isinstance(v, float) and np.isfinite(v)))
+        # Rank by H_CDR3 RMSD like the reference; global RMSD otherwise.
+        rank = metrics.get('rmsd/H_CDR3', metrics.get('rmsd', float('nan')))
+        tracker.update(rank, lambda path: save_checkpoint(
+            path, config=self.full_config, model=self.model.state_dict(),
+            optimizer=None, iteration=self.iteration,
+            extra={'sampling_eval': metrics, 'lr': self.lr}),
+            self.iteration)
+        return metrics
+
     # ------------------------------------------------------------------- loop
 
     def train(self, train_iterator, val_loader=None,
               max_iters: Optional[int] = None, seed: int = 0,
-              log_every: int = 50):
+              log_every: int = 50,
+              on_step: Optional[Callable[[int, Dict], None]] = None,
+              sampling_eval_items: Optional[list] = None,
+              sampling_eval_samples: int = 1):
         """Train until ``max_iters`` (default the config's): log every
         ``log_every`` iterations, validate and save every ``val_freq``
-        (with a ``val_loader``), save at the end otherwise."""
+        (with a ``val_loader``), save at the end otherwise. The next batch
+        is fetched and put on the device before each step is queued.
+        ``on_step(iteration, losses)`` runs after every step.
+
+        ``sampling_eval_items``: transformed val structures for
+        sampling-in-the-loop validation: every val period, design them
+        (``sampling_eval_samples`` samples each) and keep the best
+        checkpoint by CDR-H3 CA-RMSD (the global RMSD when no H3 items
+        exist); per-CDR metrics and sample PDBs land under
+        ``<log_dir>/sampling_eval/it<iteration>/``."""
         max_iters = max_iters or int(self.cfg.get('max_iters', 1000))
         val_freq = int(self.cfg.get('val_freq', 1000))
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed + 1)
+
+        best_tracker = None
+        if sampling_eval_items:
+            from .sampling_eval import BestCheckpointTracker
+            best_tracker = BestCheckpointTracker(
+                self.ckpt_dir or (self.log_dir or '.'), metric='rmsd')
+
+        fetch = lambda: to_device_batch(next(train_iterator), self.device)
+        batch = fetch() if self.iteration < max_iters else None
         t_last = time.time()
         while self.iteration < max_iters:
-            losses = self.train_step(next(train_iterator), generator,
+            step_batch = batch
+            if self.iteration + 1 < max_iters:
+                batch = fetch()
+            losses = self.train_step(step_batch, generator,
                                      defer_nan_check=True)
+            if on_step is not None:
+                on_step(self.iteration, losses)
             if self.iteration % log_every == 0:
                 dt, t_last = time.time() - t_last, time.time()
                 logger.info('it %d | %s | lr %.2e | %.2f s/%d it',
@@ -260,6 +316,13 @@ class Trainer:
                 avg = self.validate(val_loader, generator)
                 logger.info('val it %d | loss %.4f', self.iteration, avg)
                 self.save(extra={'avg_val_loss': avg})
+                if best_tracker is not None:
+                    # Each eval's sampler seed: the run's seed and the
+                    # iteration (as JAX folds the iteration into its key).
+                    self._sampling_eval(sampling_eval_items,
+                                        sampling_eval_samples,
+                                        seed + 2 + self.iteration,
+                                        best_tracker)
         self.flush_nan_checks()
         if val_loader is None:
             self.save()

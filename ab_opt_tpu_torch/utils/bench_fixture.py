@@ -169,3 +169,37 @@ def write_synthetic_complex(path: str, seed: int = 0,
     from ..data.pdb import save_pdb
     save_pdb(synthetic_complex(seed, n_antigen), path)
     return path
+
+
+# The summary TSV's columns, as the SAbDab summary file names them.
+SABDAB_COLUMNS = ('pdb', 'Hchain', 'Lchain', 'model', 'antigen_chain',
+                  'antigen_type', 'antigen_het_name', 'antigen_name', 'date',
+                  'resolution', 'method', 'scfv')
+
+
+def write_mini_sabdab(root: str, n: int = 44, n_antigen: int = 170) -> dict:
+    """A SAbDab-shaped dataset of ``n`` synthetic complexes under ``root``:
+    ``chothia/<code>.pdb`` (:func:`synthetic_complex` with seed i, chains H,
+    L and A) and ``summary.tsv``. Entries 0 and 1 name the antigen
+    ``mers s``, which puts them in the test split; entry 2 has the PDB code
+    ``5mes``, whose id ``5mes_H_L_A`` is a dock-test complex; the rest go
+    to val (the first 20 after the split's shuffle) and train. Returns the
+    dataset paths a config's ``dataset`` section takes (``processed_dir``
+    not yet written)."""
+    import os
+    chothia = os.path.join(root, 'chothia')
+    os.makedirs(chothia, exist_ok=True)
+    lines = ['\t'.join(SABDAB_COLUMNS)]
+    for i in range(n):
+        code = '5mes' if i == 2 else f'{i // 26 + 1}x{chr(97 + i % 26)}{i % 10}'
+        write_synthetic_complex(os.path.join(chothia, f'{code}.pdb'), seed=i,
+                                n_antigen=n_antigen)
+        name = 'mers s' if i < 2 else f'synthetic antigen {i}'
+        lines.append('\t'.join((code, 'H', 'L', '0', 'A', 'protein', 'NA', name,
+                                f'{1 + i % 12:02d}/01/{10 + i % 12}', '2.5',
+                                'X-RAY', 'False')))
+    summary = os.path.join(root, 'summary.tsv')
+    with open(summary, 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    return {'summary_path': summary, 'chothia_dir': chothia,
+            'processed_dir': os.path.join(root, 'processed')}

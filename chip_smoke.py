@@ -156,8 +156,34 @@ Phases, each fatal on failure:
      paste_io, dockq, rank) and the in-process requests' samples/s are
      printed with the card's name and power limit (the CLI's sample stage
      is its process's first sampler call, start-up included: no rate).
+ 14. the training CLI (runners/train_cli.py), SAbDab to checkpoints: a
+     mini-SAbDab of CLI_COMPLEXES synthetic complexes
+     (utils/bench_fixture.py::write_mini_sabdab: two of a test antigen,
+     one dock-test code, 20 val, the rest train) written under a
+     temporary directory and preprocessed (timed); then
+     configs/train/codesign_single.yml at its own model and batch
+     (float32, 6 layers, 100 steps, batch 16; K2/K3 on their CUDA-core
+     route) with CLI_ITERS steps, val every CLI_VAL_FREQ and a sampling
+     eval of 4 items x 2 samples, through train_cli.main with the launch
+     counts zeroed just before it: every loss finite, K2 and K3 one
+     launch a layer every step, K1 one launch a layer every step of every
+     sampling-eval chunk, no K4, K5 or plain call, the checkpoints, the
+     best_rmsd checkpoint and sampling_eval/it*/results.csv written; the
+     median s/step after CLI_WARMUP warm-up steps (each step timed with
+     the card synchronised at both ends) and each sampling eval's wall and
+     samples/s; the CLI's first batch through one step against the plain
+     K2/K3 route (phase 6's gate); --resume of the last checkpoint (its
+     steps start at the saved iteration) and --finetune of it
+     (CLI_FINETUNE iterations). Last, a crop past 256 residues
+     (codesign_fv's val crop, 347 residues, L=384): the float32 model's
+     'auto' sampler takes K4's route (encoder_route), a request at fan-out
+     CLI_CROP_REPS makes one K4 launch a layer a step and no K1 or K5
+     launch, and one denoiser evaluation is within CLI_CROP_TOL of K4's
+     plain version.
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches, errors, times and bounds.
+the kernels with their launches, errors, times and bounds (K1, K2, K3
+and K4 also their launches in phase 14, ``train_cli_launches``: the main
+CLI run's, and the crop past 256's for K4).
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -265,6 +291,24 @@ GRAD_NORM_RTOL = 0.01     # global gradient norms, relative
 DESIGN_SAMPLES = 256      # codesign_single, K1 and K5 requests, one call
 DESIGN_SMALL = 16         # abopt_singlecdr and dock_cdr (the CLI)
 DESIGN_OUT = Path(__file__).resolve().parent / 'results' / 'chip_smoke'
+# The training CLI phase: a mini-SAbDab of CLI_COMPLEXES synthetic complexes
+# (2 test, 1 dock-test, 20 val, the rest train) under a temporary
+# directory; configs/train/codesign_single.yml at its own model and batch
+# (float32, 6 layers, batch 16) with CLI_ITERS steps, val every
+# CLI_VAL_FREQ and the sampling eval of CLI_EVAL; then a resume to
+# CLI_RESUME_TO and a finetune of CLI_FINETUNE iterations. The crop past
+# 256 residues is codesign_fv's val crop (the whole Fv plus 128 antigen
+# residues), sampled at fan-out CLI_CROP_REPS and held against plain
+# within CLI_CROP_TOL.
+CLI_COMPLEXES = 44
+CLI_ITERS = 20
+CLI_VAL_FREQ = 8
+CLI_EVAL = {'enabled': True, 'num_items': 4, 'num_samples': 2}
+CLI_RESUME_TO = CLI_ITERS + 4
+CLI_FINETUNE = 2
+CLI_WARMUP = 2
+CLI_CROP_REPS = 4
+CLI_CROP_TOL = 0.01
 # H100 SXM peaks (NVIDIA data sheet): the bf16 dense tensor-core rate (the
 # kernels' inputs are bf16 on the timed paths) and the HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -770,14 +814,14 @@ def phase_slice(device):
     return total, model, batch, rates
 
 
-def _train_draws(N, Ln, device, seed):
+def _train_draws(N, Ln, device, seed, num_steps=100):
     """t and every noise draw of one DiffAb.loss call, from one generator."""
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
     u = lambda *s: torch.rand(*s, generator=g, device=device)
     n = lambda *s: torch.randn(*s, generator=g, device=device)
     tiny = torch.finfo(torch.float32).tiny
-    t = torch.randint(0, 100, (N,), generator=g, device=device)
+    t = torch.randint(0, num_steps, (N,), generator=g, device=device)
     return t, {'rot_axis': n(N, Ln, 3), 'rot_u': u(N, Ln),
                'rot_frac': u(N, Ln), 'rot_gauss': n(N, Ln),
                'pos': n(N, Ln, 3),
@@ -790,7 +834,8 @@ def _step_vs_plain(trainer, batch):
     their plain versions: same parameters, batch, t and draws."""
     import torch
     from ab_opt_tpu_torch.ops.ipa_attention import ipa_attention_plain
-    t, draws = _train_draws(batch['aa'].shape[0], L, trainer.device, seed=5)
+    t, draws = _train_draws(*batch['aa'].shape, trainer.device, seed=5,
+                            num_steps=trainer.model.cfg.num_steps)
     out = []
     for attention in (None, ipa_attention_plain):
         losses = trainer.loss_and_grads(batch, t=t, draws=draws,
@@ -1807,6 +1852,270 @@ def phase_design(device, smi):
     print(f'phase 13: {time.perf_counter() - t0:.2f} s')
 
 
+def _cli_recorders(steps, evals):
+    """Wrappers of Trainer.train_step and sampling_eval.evaluate_samples that
+    record, per step, its iteration, its time (the device synchronised at
+    both ends), its losses and its K2/K3 launches, and per sampling eval
+    its time, samples and K1 launches."""
+    import torch
+    from ab_opt_tpu_torch.ops import gablock
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.train import sampling_eval as se
+    from ab_opt_tpu_torch.train import trainer as tr
+    step, evaluate = tr.Trainer.train_step, se.evaluate_samples
+
+    def timed_step(self, batch, *args, **kw):
+        torch.cuda.synchronize()
+        k2, k3 = ia.ipa_attention_fwd.launches, ia.ipa_attention_bwd.launches
+        t1 = time.perf_counter()
+        losses = step(self, batch, *args, **kw)
+        torch.cuda.synchronize()
+        steps.append({'it': self.iteration - 1, 's': time.perf_counter() - t1,
+                      'losses': {k: float(v) for k, v in losses.items()},
+                      'k2': ia.ipa_attention_fwd.launches - k2,
+                      'k3': ia.ipa_attention_bwd.launches - k3,
+                      'batch': batch if not steps else None})
+        return losses
+
+    def timed_eval(model, items, seed, num_samples=1, batch_size=8,
+                   out_dir=None, device=None):
+        torch.cuda.synchronize()
+        k1 = gablock.gablock_layer.launches
+        t1 = time.perf_counter()
+        out = evaluate(model, items, seed, num_samples, batch_size, out_dir,
+                       device)
+        torch.cuda.synchronize()
+        evals.append({'s': time.perf_counter() - t1,
+                      'samples': len(items) * max(num_samples, 1),
+                      'chunks': -(-len(items) // batch_size),
+                      'k1': gablock.gablock_layer.launches - k1})
+        return out
+
+    return (tr.Trainer, 'train_step', step, timed_step), \
+        (se, 'evaluate_samples', evaluate, timed_eval)
+
+
+def _check_cli_run(name, trainer, steps, first_it, last_it, device):
+    """Every step of a CLI run finite, at the iterations first_it ..
+    last_it - 1 in order, on ``device``, each with one K2 and one K3
+    launch a layer."""
+    layers = trainer.model.cfg.num_layers
+    its = [st['it'] for st in steps]
+    finite = all(math.isfinite(v) for st in steps
+                 for v in st['losses'].values())
+    per_step = {(st['k2'], st['k3']) for st in steps}
+    print(f'train CLI {name}: iterations {its[0] if its else None}..'
+          f'{its[-1] if its else None} ({len(its)} steps), finite={finite}, '
+          f'K2/K3 launches a step {sorted(per_step)}')
+    if not (its == list(range(first_it, last_it)) and finite
+            and per_step == {(layers, layers)}
+            and trainer.iteration == last_it
+            and trainer.device.type == device.type):
+        raise SystemExit(f'train CLI {name} failed its checks')
+
+
+def phase_train_cli(device, smi):
+    """The training CLI (see the module docstring, phase 14). Returns the
+    launches of its main run (K1, K2, K3) and of the crop past 256 (K4)."""
+    import logging
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+    from ab_opt_tpu_torch.data import PaddingCollate, get_dataset
+    from ab_opt_tpu_torch.data.collate import to_device_batch
+    from ab_opt_tpu_torch.data.sabdab import SAbDabDataset
+    from ab_opt_tpu_torch.models.diffab import encoder_route
+    from ab_opt_tpu_torch.ops import gablock
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.runners import train_cli
+    from ab_opt_tpu_torch.runners.design import BatchedSampler, random_model
+    from ab_opt_tpu_torch.utils.bench_fixture import write_mini_sabdab
+    from ab_opt_tpu_torch.utils.config import load_config
+    t0 = time.perf_counter()
+    torch.set_grad_enabled(True)
+    repo = Path(__file__).resolve().parent
+    steps, evals = [], []
+    patches = _cli_recorders(steps, evals)
+    root_log = logging.getLogger()
+    saved_log = (root_log.handlers[:], root_log.level)
+    counts = lambda: {
+        'K1': gablock.gablock_layer.launches,
+        'K5': gablock.fused_encoder_chained.launches,
+        'K2': ia.ipa_attention_fwd.launches,
+        'K3': ia.ipa_attention_bwd.launches,
+        'K4': ia.ipa_attention_fwd_p2n.launches,
+        'plain': (gablock.gablock_layer_reference.calls
+                  + gablock.fused_encoder_chained_reference.calls
+                  + ia.ipa_attention_fwd_reference.calls
+                  + ia.ipa_attention_bwd_reference.calls
+                  + ia.ipa_attention_fwd_p2n_reference.calls)}
+    saved_env = os.environ.pop('AB_OPT_FUSED_CHAIN', None)
+    try:
+        for owner, attr, _, wrapper in patches:
+            setattr(owner, attr, wrapper)
+        with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_') as tmp:
+            tmp = Path(tmp)
+            paths = write_mini_sabdab(str(tmp), n=CLI_COMPLEXES)
+            t1 = time.perf_counter()
+            SAbDabDataset(summary_path=paths['summary_path'],
+                          chothia_dir=paths['chothia_dir'],
+                          processed_dir=paths['processed_dir'])
+            prep_s = time.perf_counter() - t1
+            print(f'train CLI: mini-SAbDab of {CLI_COMPLEXES} synthetic '
+                  f'complexes preprocessed in {prep_s:.3f} s (parse, CDR '
+                  f'labels, pickles, clusters; host) ({smi})')
+            cfg = yaml.safe_load((repo / 'configs' / 'train' /
+                                  'codesign_single.yml').read_text())
+            for split in ('train', 'val'):
+                cfg['dataset'][split].update(paths)
+            cfg['train'].update(max_iters=CLI_ITERS, val_freq=CLI_VAL_FREQ,
+                                sampling_eval=dict(CLI_EVAL))
+            yml = tmp / 'codesign_single.yml'
+            yml.write_text(yaml.safe_dump(cfg))
+            batch_size = cfg['train']['batch_size']
+
+            # The main run, its counts zeroed just before and read after.
+            gablock.reset_counts()
+            ia.reset_counts()
+            t1 = time.perf_counter()
+            trainer = train_cli.main(['--config', str(yml), '--logdir',
+                                      str(tmp / 'logs')])
+            wall = time.perf_counter() - t1
+            run = counts()
+            _check_cli_run('run', trainer, steps, 0, CLI_ITERS, device)
+            layers = trainer.model.cfg.num_layers
+            T = trainer.model.cfg.num_steps
+            first = steps[0]['batch']
+            Lb = first['aa'].shape[1]
+            routes = ia.attention_plan(torch.float32, batch_size, Lb, 12)
+            step_s = statistics.median(st['s'] for st in steps[CLI_WARMUP:])
+            in_steps = sum(st['k2'] for st in steps)
+            print(f'train CLI: codesign_single ({trainer.model.cfg.dtype} '
+                  f'config, batch {batch_size}, crop bucket L={Lb}, '
+                  f'{layers} layers): K2 {routes["fwd"]["route"]} route, K3 '
+                  f'{routes["bwd"]["route"]} route; median '
+                  f'{step_s:.4f} s/step over steps {CLI_WARMUP + 1}-'
+                  f'{len(steps)} (after {CLI_WARMUP} warm-up steps; '
+                  f'min {min(st["s"] for st in steps[CLI_WARMUP:]):.4f}, '
+                  f'max {max(st["s"] for st in steps[CLI_WARMUP:]):.4f}), '
+                  f'first step {steps[0]["s"]:.4f} s; CLI wall {wall:.3f} s '
+                  f'({smi})')
+            print(f'train CLI: launches K1 {run["K1"]}, K2 {run["K2"]} '
+                  f'({in_steps} in steps, {run["K2"] - in_steps} in val '
+                  f'losses), K3 {run["K3"]}, K4 {run["K4"]}, K5 {run["K5"]}, '
+                  f'plain calls {run["plain"]}')
+            for i, ev in enumerate(evals):
+                print(f'train CLI: sampling eval {i + 1}: {ev["samples"]} '
+                      f'samples ({ev["chunks"]} chunk(s), {T} steps) in '
+                      f'{ev["s"]:.3f} s, {ev["samples"] / ev["s"]:.3f} '
+                      f'samples/s, K1 launches {ev["k1"]} ({smi})')
+            n_evals = CLI_ITERS // CLI_VAL_FREQ
+            log_dir = Path(trainer.log_dir)
+            want = [log_dir / 'checkpoints' / f'{it}.ckpt' for it in
+                    range(CLI_VAL_FREQ, CLI_ITERS + 1, CLI_VAL_FREQ)]
+            want += [log_dir / 'sampling_eval' / f'it{it}' / 'results.csv'
+                     for it in range(CLI_VAL_FREQ, CLI_ITERS + 1,
+                                     CLI_VAL_FREQ)]
+            missing = [str(f.relative_to(log_dir)) for f in want
+                       if not f.exists()]
+            best = sorted(p.name for p in
+                          (log_dir / 'checkpoints').glob('best_rmsd_*.ckpt'))
+            files = sorted(str(f.relative_to(log_dir))
+                           for f in log_dir.rglob('*')
+                           if f.is_file() and f.suffix != '.pdb')
+            print(f'train CLI: log dir files {files}')
+            if not (len(evals) == n_evals
+                    and all(ev['k1'] == layers * T * ev['chunks']
+                            for ev in evals)
+                    and run['K1'] == sum(ev['k1'] for ev in evals)
+                    and run['K4'] == run['K5'] == run['plain'] == 0
+                    and run['K3'] == in_steps == layers * CLI_ITERS
+                    and not missing and len(best) == 1):
+                raise SystemExit(f'train CLI run failed its checks (missing '
+                                 f'{missing}, best {best})')
+            _step_vs_plain(trainer, first)
+
+            # Resume from the last checkpoint, then finetune from it.
+            last = want[n_evals - 1]
+            steps.clear()
+            resumed = train_cli.main(['--config', str(yml), '--resume',
+                                      str(last), '--max_iters',
+                                      str(CLI_ITERS)])
+            _check_cli_run(f'resume from {last.name}', resumed, steps,
+                           int(last.stem), CLI_ITERS, device)
+            steps.clear()
+            tuned = train_cli.main(['--config', str(yml), '--logdir',
+                                    str(tmp / 'finetune'), '--finetune',
+                                    str(last), '--finetune_iters',
+                                    str(CLI_FINETUNE)])
+            _check_cli_run(f'finetune from {last.name}', tuned, steps, 0,
+                           CLI_FINETUNE, device)
+
+            # A crop past 256 residues: codesign_fv's val crop, 'auto' on
+            # the card takes K4's route.
+            fv, _ = load_config(str(repo / 'configs' / 'train' /
+                                    'codesign_fv.yml'))
+            ds = get_dataset(dict(fv['dataset']['val'], **paths))
+            crop = ds[0]
+            batch = PaddingCollate()([crop])
+            Lc = batch['aa'].shape[1]
+            model = random_model(fv['model'], 5)
+            route = encoder_route(model.cfg.ipa_impl, True, Lc, False)
+            gablock.reset_counts()
+            ia.reset_counts()
+            t1 = time.perf_counter()
+            out = BatchedSampler(model)(batch, seed=6,
+                                        num_replicas=CLI_CROP_REPS)
+            crop_s = time.perf_counter() - t1
+            crop_run = counts()
+            finite = all(np.isfinite(out[k]).all()
+                         for k in ('v', 'p', 'pos_atom_new', 'prmsd'))
+            d = _denoiser_check(model, to_device_batch(batch, device),
+                                {'attention':
+                                 ia.ipa_attention_fwd_p2n_reference},
+                                reps=CLI_CROP_REPS)
+            print(f'crop past 256: codesign_fv val crop of '
+                  f'{crop["aa"].shape[0]} residues (bucket L={Lc}), '
+                  f'{model.cfg.dtype} model, ipa_impl={model.cfg.ipa_impl}: '
+                  f'route {route}; fan-out {CLI_CROP_REPS}, {T} steps in '
+                  f'{crop_s:.3f} s, launches K4 {crop_run["K4"]}, K1 '
+                  f'{crop_run["K1"]}, K5 {crop_run["K5"]}, plain calls '
+                  f'{crop_run["plain"]}, finite={finite}; denoiser step, K4 '
+                  f'vs plain: max |d eps_pos|={d[0]:.6f}, max |d R_next|='
+                  f'{d[1]:.6f}, max |d seq probs|={d[2]:.6f} ({smi})')
+            if not (Lc > 256 and route == 'k4' and finite
+                    and crop_run['K4'] == (model.cfg.num_layers
+                                           * model.cfg.num_steps)
+                    and crop_run['K1'] == crop_run['K5'] == 0
+                    and crop_run['plain'] == 0
+                    and gablock.gablock_layer.launches == 0
+                    and max(d) < CLI_CROP_TOL):
+                raise SystemExit('the crop past 256 failed its checks')
+    finally:
+        for owner, attr, original, _ in patches:
+            setattr(owner, attr, original)
+        for h in root_log.handlers[:]:
+            if h not in saved_log[0]:
+                root_log.removeHandler(h)
+                h.close()
+        for h in saved_log[0]:
+            if h not in root_log.handlers:
+                root_log.addHandler(h)
+        root_log.setLevel(saved_log[1])
+        if saved_env is not None:
+            os.environ['AB_OPT_FUSED_CHAIN'] = saved_env
+    print(f'train CLI stages ({smi}): preprocess {prep_s:.3f} s, median '
+          f'{step_s:.4f} s/step, sampling eval '
+          + ', '.join(f'{ev["s"]:.3f} s ({ev["samples"] / ev["s"]:.3f} '
+                      f'samples/s)' for ev in evals))
+    print(f'phase 14: {time.perf_counter() - t0:.2f} s')
+    return ({'K1': run['K1'], 'K2': run['K2'], 'K3': run['K3'],
+             'K4': crop_run['K4']})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1842,24 +2151,27 @@ def main():
     variants = phase_variants(device)
     fused = phase_fused_variants(device, k1_rows)
     phase_design(device, smi.stdout.strip())
+    cli = phase_train_cli(device, smi.stdout.strip())
 
     kernels = [dict(
         name='gablock', route='cuda', source='ab_opt_tpu_torch/csrc/gablock.cu',
         replaces='ab_opt_tpu/ops/gablock_pallas.py:390', launches=launches,
         max_abs_err=max_err, ms=times[256][0], plain_ms=times[256][1],
-        bound_ms=bounds[256][0], bound_by=bounds[256][1], library_ms=None)]
+        bound_ms=bounds[256][0], bound_by=bounds[256][1], library_ms=None,
+        train_cli_launches=cli['K1'])]
     for key, name, line, n in (('fwd', 'ipa_attention_fwd', 101, k2),
                                ('bwd', 'ipa_attention_bwd', 183, k3)):
         kernels.append(dict(
             name=name, route='cuda',
             source='ab_opt_tpu_torch/csrc/ipa_attention.cu',
             replaces=f'ab_opt_tpu/ops/ipa_pallas.py:{line}', launches=n,
-            **attn[key], library_ms=None))
+            **attn[key], library_ms=None,
+            train_cli_launches=cli['K2' if key == 'fwd' else 'K3']))
     kernels.append(dict(
         name='ipa_attention_fwd_p2n', route='cuda',
         source='ab_opt_tpu_torch/csrc/ipa_attention.cu',
         replaces='ab_opt_tpu/ops/ipa_pallas.py:142', launches=k4, **p2n,
-        library_ms=None))
+        library_ms=None, train_cli_launches=cli['K4']))
     kernels.append(dict(
         name='gablock_chain', route='cuda',
         source='ab_opt_tpu_torch/csrc/gablock_chain.cu',

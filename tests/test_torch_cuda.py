@@ -2,7 +2,8 @@
 IPA attention kernels (K2, K3, K4), the chained encoder kernel (K5), the
 attention variants (S1-S3) and the fused-GABlock variants (S4)
 against their plain versions, a float32 config's denoiser through K1 and
-K5, and the design runner, on an NVIDIA GPU (marker
+K5 (and through K4 past 256 residues), the design runner and the training
+CLI, on an NVIDIA GPU (marker
 ``cuda``; skips without a card). Imports no JAX, so it also runs where only
 the port is installed:
 
@@ -873,3 +874,106 @@ def test_design_runner_on_card(tmp_path):
               'results.csv', 'aa.csv', 'traj.pdb'):
         assert os.path.exists(out / f), f
     assert (out / 'traj.pdb').read_text().count('MODEL ') == 4
+
+
+@pytest.mark.cuda
+def test_auto_route_past_256_takes_k4_on_card():
+    """A float32 config's ``'auto'`` sampler at L=320 takes K4's route (the
+    eager GAEncoder over K4's CUDA-core tiles): one K4 launch a layer and
+    no K1 or K5 launch a denoiser evaluation, within 0.01 of the same
+    evaluation through K4's plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    import numpy as np
+    from ab_opt_tpu_torch.geometry import rotation_to_so3vec
+    from ab_opt_tpu_torch.models import DiffAb, DiffAbConfig
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.utils.bench_fixture import synthetic_batch
+    dev, L, reps = torch.device('cuda'), 320, 2
+    torch.manual_seed(0)
+    model = DiffAb(DiffAbConfig()).to(dev)
+    batch = synthetic_batch(np.random.default_rng(0), N=1, L=L, n_ab=200,
+                            gen_lo=90, gen_hi=100, device=dev)
+    rep = lambda a: a.repeat_interleave(reps, 0)
+    gb.reset_counts()
+    ia.reset_counts()
+    outs = []
+    with torch.no_grad():
+        res_feat, pair_feat, R0, p0 = model.encode(batch, True, True)
+        gen, mres = rep(batch['generate_flag']), rep(batch['mask'])
+        v = rotation_to_so3vec(rep(R0))
+        p = model.normalize_position(rep(p0))
+        beta = torch.full((reps,), 0.05, device=dev)
+        for kw in ({}, {'attention': ia.ipa_attention_fwd_p2n_reference}):
+            enc, hw = model.prepare_denoiser(pair_feat, mres, reps, **kw)
+            outs.append(model.eps_net(v, p, rep(batch['aa']), rep(res_feat),
+                                      pair_feat, beta, gen, mres, reps=reps,
+                                      encoder_fn=enc, head_weights=hw))
+    torch.cuda.synchronize()
+    layers = model.cfg.num_layers
+    assert ia.ipa_attention_fwd_p2n.launches == layers
+    assert ia.ipa_attention_fwd_p2n_reference.calls == layers
+    assert gb.gablock_layer.launches == gb.fused_encoder_chained.launches == 0
+    got, want = outs
+    for i in (1, 2, 3):   # R_next, eps_pos, c_denoised
+        assert torch.isfinite(got[i]).all()
+        assert float((got[i].float() - want[i].float()).abs().max()) < 0.01
+
+
+@pytest.mark.cuda
+def test_train_cli_on_card(tmp_path):
+    """python -m ab_opt_tpu_torch.runners.train_cli on the card at full
+    widths, two layers and four diffusion steps on a mini-SAbDab: 3 steps,
+    one K2 and one K3 launch a layer a step, a sampling eval through K1, the
+    checkpoints and the eval's files."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    import math
+    import yaml
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.runners import train_cli
+    from ab_opt_tpu_torch.train import trainer as tr
+    from ab_opt_tpu_torch.utils.bench_fixture import write_mini_sabdab
+    paths = write_mini_sabdab(str(tmp_path / 'sabdab'), n=26)
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, 'configs', 'train',
+                           'codesign_single.yml')) as f:
+        cfg = yaml.safe_load(f)
+    cfg['model']['diffusion'].update(num_steps=4,
+                                     eps_net_opt={'num_layers': 2})
+    cfg['train'].update(max_iters=3, val_freq=3, sampling_eval={
+        'enabled': True, 'num_items': 2, 'num_samples': 2})
+    for split in ('train', 'val'):
+        cfg['dataset'][split].update(paths)
+    yml = tmp_path / 'cfg.yml'
+    yml.write_text(yaml.safe_dump(cfg))
+    seen, step = [], tr.Trainer.train_step
+
+    def recording_step(self, *a, **k):
+        before = (ia.ipa_attention_fwd.launches,
+                  ia.ipa_attention_bwd.launches)
+        losses = step(self, *a, **k)
+        seen.append((ia.ipa_attention_fwd.launches - before[0],
+                     ia.ipa_attention_bwd.launches - before[1],
+                     [float(v) for v in losses.values()]))
+        return losses
+
+    gb.reset_counts()
+    ia.reset_counts()
+    tr.Trainer.train_step = recording_step
+    try:
+        trainer = train_cli.main(['--config', str(yml), '--logdir',
+                                  str(tmp_path / 'logs')])
+    finally:
+        tr.Trainer.train_step = step
+    assert trainer.device.type == 'cuda' and trainer.iteration == 3
+    assert [(k2, k3) for k2, k3, _ in seen] == [(2, 2)] * 3
+    assert all(math.isfinite(v) for *_, ls in seen for v in ls)
+    assert gb.gablock_layer.launches == 2 * 4
+    assert ia.ipa_attention_fwd_reference.calls == 0
+    log_dir = tmp_path / 'logs' / next(p.name for p in
+                                       (tmp_path / 'logs').iterdir())
+    assert (log_dir / 'checkpoints' / '3.ckpt').exists()
+    assert list((log_dir / 'checkpoints').glob('best_rmsd_*.ckpt'))
+    assert (log_dir / 'sampling_eval' / 'it3' / 'results.csv').exists()

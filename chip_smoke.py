@@ -180,10 +180,45 @@ Phases, each fatal on failure:
      CLI_CROP_REPS makes one K4 launch a layer a step and no K1 or K5
      launch, and one denoiser evaluation is within CLI_CROP_TOL of K4's
      plain version.
+ 15. the test-set runner (runners/testset.py): a mini-SAbDab of
+     TESTSET_COMPLEXES synthetic complexes (entries 0-1 the test split,
+     entry 2 the dock-test split) under a temporary directory,
+     preprocessed (timed); design_for_testset with
+     configs/test/codesign_single.yml as written (float32, 6 layers, 100
+     steps, crop L=256) on the test split at TESTSET_SAMPLES samples a
+     complex in one sampler call, DockQ on and relax=True (the relax
+     backends are absent, so the runner logs their skip once a complex),
+     then seq_design_dock_testset.yml on the dock-test split, the launch
+     counts zeroed just before: every sampler call at fan-out
+     TESTSET_SAMPLES with one K1 launch a layer a step and no K4, K5 or
+     plain call; each complex's tree (results.csv, aa.csv, metadata.json,
+     REF1.pdb, every sample) and finite testset_results.csv and
+     testset_summary.csv; then evaluate_directory over one complex, a
+     finite rmsd and seqid a sample. The first sampler call of each model
+     at each crop and fan-out (L=256 x 32 on the test split, L=32 x 32 on
+     the dock-test split) then goes through one denoiser evaluation on
+     its own model and crop at its fan-out, K1 against its plain version
+     (bf16 operands) within DENOISER_TOL. Walls and the four stage times
+     are printed with the card's name and power limit;
+ 16. the 3-stage optimization pipeline (runners/optimize.py): OPT_POSES
+     poses of a dock_cdr request on the synthetic complex, then
+     optimize_antibody with configs/test/seq_design.yml and dock_cdr.yml as
+     written, OPT_MAX_POSES poses x OPT_DESIGNS designs, each re-docked at
+     OPT_NUMS poses, OPT_BATCH trajectories a call, the launch counts
+     zeroed just before: stage 1 OPT_MAX_POSES sampler calls and stage 2
+     one a design, each with one K1 launch a layer a step and no K4, K5 or
+     plain call; screening_summary.csv with a finite DockQ_avg and
+     prmsd_avg for every candidate; each stage's wall and crop bucket L
+     (the pose's heavy chain labelled as CDR); then one denoiser
+     evaluation of each stage's model on its first call's crop at its
+     fan-out (L=32 x OPT_DESIGNS, L=32 x OPT_NUMS), K1 against its plain
+     version within DENOISER_TOL. design-dock is not run: the card's
+     machine has no hdock binary.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds (K1, K2, K3
 and K4 also their launches in phase 14, ``train_cli_launches``: the main
-CLI run's, and the crop past 256's for K4).
+CLI run's, and the crop past 256's for K4; K1 also ``testset_launches``
+and ``optimize_launches``, phases 15 and 16).
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -309,6 +344,19 @@ CLI_FINETUNE = 2
 CLI_WARMUP = 2
 CLI_CROP_REPS = 4
 CLI_CROP_TOL = 0.01
+# The test-set phase: a mini-SAbDab of TESTSET_COMPLEXES synthetic complexes
+# (entries 0-1 the test split, entry 2 the dock-test split), the runner at
+# TESTSET_SAMPLES samples a complex in one sampler call. The optimize
+# phase: OPT_POSES poses of a dock_cdr request; OPT_MAX_POSES of them
+# through stage 1 at OPT_DESIGNS designs each, every design re-docked in
+# stage 2 at OPT_NUMS poses, OPT_BATCH trajectories a sampler call.
+TESTSET_COMPLEXES = 3
+TESTSET_SAMPLES = 32
+OPT_POSES = 8
+OPT_MAX_POSES = 2
+OPT_DESIGNS = 4
+OPT_NUMS = 16
+OPT_BATCH = 16
 # H100 SXM peaks (NVIDIA data sheet): the bf16 dense tensor-core rate (the
 # kernels' inputs are bf16 on the timed paths) and the HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -726,16 +774,17 @@ def phase_attention(device):
     return res
 
 
-def _denoiser_check(model, batch, plain, reps=4):
+def _denoiser_check(model, batch, plain, reps=4, remove=(True, True)):
     """One denoiser evaluation of the slice's model at full width, with the
     encoder through the kernel and through the plain version (``plain``:
     the keyword of ``DiffAb.prepare_denoiser`` that swaps the route's
-    kernel wrapper for its plain version): same weights, same inputs.
+    kernel wrapper for its plain version): same weights, same inputs, the
+    context encoded with ``remove`` (remove_structure, remove_sequence).
     Returns (max |d eps_pos|, max |d R_next|, max |d c|)."""
     import torch
     from ab_opt_tpu_torch.geometry import rotation_to_so3vec
     with torch.no_grad():
-        res_feat, pair_feat, R0, p0 = model.encode(batch, True, True)
+        res_feat, pair_feat, R0, p0 = model.encode(batch, *remove)
         rep = lambda a: a.repeat_interleave(reps, 0)
         res_feat, R0, p0, gen, mres, aa = map(rep, (
             res_feat, R0, p0, batch['generate_flag'], batch['mask'],
@@ -1705,39 +1754,99 @@ def _check_design(name, out_dir, stage, launches_of, steps_of, cold=False):
     return total
 
 
-def _check_crop_denoiser(sampled, device):
-    """One denoiser evaluation of the model and crop that the K1 request
-    sampled (``sampled``: its sampler call's model, collated batch and
-    fan-out), at that fan-out, through K1 and through K5, each against the
-    same route's plain version (bf16 operands) within DENOISER_TOL."""
+def _route_counts():
+    """The kernels' launches (K1-K5) and their plain versions' calls."""
+    from ab_opt_tpu_torch.ops import gablock
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    return {'K1': gablock.gablock_layer.launches,
+            'K5': gablock.fused_encoder_chained.launches,
+            'K2': ia.ipa_attention_fwd.launches,
+            'K3': ia.ipa_attention_bwd.launches,
+            'K4': ia.ipa_attention_fwd_p2n.launches,
+            'plain': (gablock.gablock_layer_reference.calls
+                      + gablock.fused_encoder_chained_reference.calls
+                      + ia.ipa_attention_fwd_reference.calls
+                      + ia.ipa_attention_bwd_reference.calls
+                      + ia.ipa_attention_fwd_p2n_reference.calls)}
+
+
+def _sampler_recorder(calls, sampled):
+    """BatchedSampler.__call__ and a wrapper of it that appends, for each
+    sampler call, its crop bucket L, fan-out, wall (the samples copied to
+    the host) and the launches and plain calls it made to ``calls``, and
+    keeps in ``sampled``, for the first call of each model at each crop
+    bucket and fan-out, that call's (model, collated batch, fan-out,
+    (remove_structure, remove_sequence)) for _check_sampled."""
+    from ab_opt_tpu_torch.runners import design as D
+    original = D.BatchedSampler.__call__
+
+    def recording_call(self, batch, seed, num_replicas=1):
+        key = (id(self.model), int(batch['aa'].shape[1]), num_replicas)
+        sampled.setdefault(key, (self.model, batch, num_replicas,
+                                 (self.sample_structure,
+                                  self.sample_sequence)))
+        before = _route_counts()
+        t = time.perf_counter()
+        out = original(self, batch, seed, num_replicas)
+        after = _route_counts()
+        calls.append(dict({k: after[k] - before[k] for k in after},
+                          L=int(batch['aa'].shape[1]), reps=num_replicas,
+                          s=time.perf_counter() - t))
+        return out
+    return original, recording_call
+
+
+def _runner_log():
+    """A handler on the runners' logger that keeps their INFO lines (the
+    design runner's stage and launch lines, the test-set runner's relax
+    skip) in a buffer; returns (buffer, detach)."""
+    import io
+    import logging
+    buf = io.StringIO()
+    handler = logging.StreamHandler(buf)
+    log = logging.getLogger('ab_opt_tpu_torch.runners')
+    level = log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+
+    def detach():
+        log.removeHandler(handler)
+        log.setLevel(level)
+    return buf, detach
+
+
+def _check_sampled(name, sampled, device, routes=('K1',)):
+    """One denoiser evaluation of each model, crop and fan-out in
+    ``sampled`` (see _sampler_recorder), at that fan-out, through each of
+    ``routes`` (K1, K5) against the same route's plain version (bf16
+    operands) within DENOISER_TOL. Run after a phase has read its launch
+    counts: these launches are the comparison's, not the main path's."""
     from ab_opt_tpu_torch.data.collate import to_device_batch
     from ab_opt_tpu_torch.ops import gablock
-    model, single, reps = sampled
-    if model.cfg.dtype != 'float32' or reps != DESIGN_SAMPLES:
-        raise SystemExit(f'the K1 request sampled a {model.cfg.dtype} model '
-                         f'at fan-out {reps}')
-    batch = to_device_batch(single, device)
-    Lc, n_res = batch['aa'].shape[1], int(batch['mask'].sum())
-    plains = (('K1', {'layer': gablock.gablock_layer_reference}),
-              ('K5', {'chain': gablock.fused_encoder_chained_reference}))
-    for route, plain in plains:
-        if route == 'K5':
-            os.environ['AB_OPT_FUSED_CHAIN'] = '1'
-        d = _denoiser_check(model, batch, plain, reps=reps)
-        os.environ.pop('AB_OPT_FUSED_CHAIN', None)
-        print(f'denoiser step, float32 codesign_single model on its sampled '
-              f'crop (L={Lc}, {n_res} residues, reps={reps}), {route} vs '
-              f'plain (bf16 operands): max |d eps_pos|={d[0]:.5f}, max '
-              f'|d R_next|={d[1]:.5f}, max |d seq probs|={d[2]:.5f}')
-        if not max(d) < DENOISER_TOL:
-            raise SystemExit(f'float32 denoiser through {route} disagrees '
-                             'with the plain route')
+    plains = {'K1': {'layer': gablock.gablock_layer_reference},
+              'K5': {'chain': gablock.fused_encoder_chained_reference}}
+    for model, single, reps, remove in sampled.values():
+        batch = to_device_batch(single, device)
+        Lc, n_res = batch['aa'].shape[1], int(batch['mask'].sum())
+        for route in routes:
+            if route == 'K5':
+                os.environ['AB_OPT_FUSED_CHAIN'] = '1'
+            d = _denoiser_check(model, batch, plains[route], reps=reps,
+                                remove=remove)
+            os.environ.pop('AB_OPT_FUSED_CHAIN', None)
+            print(f'{name}: denoiser step, {model.cfg.dtype} model on its '
+                  f'sampled crop (L={Lc}, {n_res} residues, reps={reps}, '
+                  f'remove structure/sequence {remove}), {route} vs plain '
+                  f'(bf16 operands): max |d eps_pos|='
+                  f'{d[0]:.5f}, max |d R_next|={d[1]:.5f}, max |d seq '
+                  f'probs|={d[2]:.5f}')
+            if not max(d) < DENOISER_TOL:
+                raise SystemExit(f'{name}: the denoiser through {route} '
+                                 'disagrees with the plain route')
 
 
 def phase_design(device, smi):
     """The design runner (see the module docstring, phase 13)."""
-    import io
-    import logging
     from ab_opt_tpu_torch.ops import gablock
     from ab_opt_tpu_torch.runners import design as D
     from ab_opt_tpu_torch.tools.dockq import dockq as Q
@@ -1768,20 +1877,10 @@ def phase_design(device, smi):
          lambda it: k1(it['opt_step']), lambda it: it['opt_step']))
     # The in-process requests' stage and launch records: the runner's own
     # log lines, read as the CLI child's stderr is.
-    log = io.StringIO()
-    handler = logging.StreamHandler(log)
-    runner_log = logging.getLogger(D.__name__)
-    level = runner_log.level
-    runner_log.addHandler(handler)
-    runner_log.setLevel(logging.INFO)
+    log, detach = _runner_log()
     # The K1 request's sampler call: its model, crop and fan-out.
-    sampled = []
-    sampler_call = D.BatchedSampler.__call__
-
-    def recording_call(self, batch, seed, num_replicas=1):
-        sampled.append((self.model, batch, num_replicas))
-        return sampler_call(self, batch, seed, num_replicas)
-
+    calls, sampled = [], {}
+    sampler_call, recording_call = _sampler_recorder(calls, sampled)
     saved = os.environ.pop('AB_OPT_FUSED_CHAIN', None)
     try:
         gablock.reset_counts()
@@ -1814,10 +1913,15 @@ def phase_design(device, smi):
         if contacts != 3 * scored:
             raise SystemExit('DockQ did not count every contact set with '
                              'the native kernel')
-        if len(sampled) != 1:
-            raise SystemExit(f'the K1 request made {len(sampled)} sampler '
+        if len(calls) != 1:
+            raise SystemExit(f'the K1 request made {len(calls)} sampler '
                              'calls, not one')
-        _check_crop_denoiser(sampled.pop(), device)
+        model, _, reps, _ = next(iter(sampled.values()))
+        if model.cfg.dtype != 'float32' or reps != DESIGN_SAMPLES:
+            raise SystemExit(f'the K1 request sampled a {model.cfg.dtype} '
+                             f'model at fan-out {reps}')
+        _check_sampled('the K1 design request', sampled, device,
+                       ('K1', 'K5'))
 
         # dock_cdr through the CLI, as a user runs it (renumbering on).
         env = {k: v for k, v in os.environ.items()
@@ -1841,8 +1945,7 @@ def phase_design(device, smi):
         print(f'  wall {wall:.3f} s, the child process included ({smi})')
     finally:
         D.BatchedSampler.__call__ = sampler_call
-        runner_log.removeHandler(handler)
-        runner_log.setLevel(level)
+        detach()
         os.environ.pop('AB_OPT_FUSED_CHAIN', None)
         if saved is not None:
             os.environ['AB_OPT_FUSED_CHAIN'] = saved
@@ -1941,17 +2044,6 @@ def phase_train_cli(device, smi):
     patches = _cli_recorders(steps, evals)
     root_log = logging.getLogger()
     saved_log = (root_log.handlers[:], root_log.level)
-    counts = lambda: {
-        'K1': gablock.gablock_layer.launches,
-        'K5': gablock.fused_encoder_chained.launches,
-        'K2': ia.ipa_attention_fwd.launches,
-        'K3': ia.ipa_attention_bwd.launches,
-        'K4': ia.ipa_attention_fwd_p2n.launches,
-        'plain': (gablock.gablock_layer_reference.calls
-                  + gablock.fused_encoder_chained_reference.calls
-                  + ia.ipa_attention_fwd_reference.calls
-                  + ia.ipa_attention_bwd_reference.calls
-                  + ia.ipa_attention_fwd_p2n_reference.calls)}
     saved_env = os.environ.pop('AB_OPT_FUSED_CHAIN', None)
     try:
         for owner, attr, _, wrapper in patches:
@@ -1984,7 +2076,7 @@ def phase_train_cli(device, smi):
             trainer = train_cli.main(['--config', str(yml), '--logdir',
                                       str(tmp / 'logs')])
             wall = time.perf_counter() - t1
-            run = counts()
+            run = _route_counts()
             _check_cli_run('run', trainer, steps, 0, CLI_ITERS, device)
             layers = trainer.model.cfg.num_layers
             T = trainer.model.cfg.num_steps
@@ -2070,7 +2162,7 @@ def phase_train_cli(device, smi):
             out = BatchedSampler(model)(batch, seed=6,
                                         num_replicas=CLI_CROP_REPS)
             crop_s = time.perf_counter() - t1
-            crop_run = counts()
+            crop_run = _route_counts()
             finite = all(np.isfinite(out[k]).all()
                          for k in ('v', 'p', 'pos_atom_new', 'prmsd'))
             d = _denoiser_check(model, to_device_batch(batch, device),
@@ -2116,6 +2208,245 @@ def phase_train_cli(device, smi):
              'K4': crop_run['K4']})
 
 
+def _check_calls(name, calls, n_calls, layers, steps, reps):
+    """``n_calls`` sampler calls, each at fan-out ``reps`` with one K1
+    launch a layer a step and no K4, K5 or plain call."""
+    per_call = sorted({(c['K1'], c['K4'], c['K5'], c['plain'])
+                       for c in calls})
+    print(f'{name}: {len(calls)} sampler calls, fan-out '
+          f'{sorted({c["reps"] for c in calls})}, crop buckets L='
+          f'{sorted({c["L"] for c in calls})}, (K1, K4, K5, plain) a call '
+          f'{per_call}, sampler walls '
+          f'{[round(c["s"], 3) for c in calls]} s')
+    if not (len(calls) == n_calls and all(c['reps'] == reps for c in calls)
+            and per_call == [(layers * steps, 0, 0, 0)]):
+        raise SystemExit(f'{name}: the sampler calls failed their checks')
+
+
+def _finite_csv(path, rows):
+    """A CSV of ``rows`` data rows whose numeric cells are all finite."""
+    import numpy as np
+    import pandas as pd
+    df = pd.read_csv(path)
+    num = df.select_dtypes('number').to_numpy(float)
+    return len(df) == rows and num.size > 0 and bool(np.isfinite(num).all())
+
+
+def phase_testset(device, smi):
+    """The test-set runner (see the module docstring, phase 15). Returns
+    K1's launches in its runs."""
+    import tempfile
+
+    import numpy as np
+    import yaml
+    from ab_opt_tpu_torch.data.sabdab import SAbDabDataset
+    from ab_opt_tpu_torch.ops import gablock
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.runners import design as D
+    from ab_opt_tpu_torch.runners import testset
+    from ab_opt_tpu_torch.tools.eval import evaluate_directory
+    from ab_opt_tpu_torch.tools.relax import available_backends
+    from ab_opt_tpu_torch.utils.bench_fixture import write_mini_sabdab
+    t0 = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    out_root = DESIGN_OUT / 'testset'
+    shutil.rmtree(out_root, ignore_errors=True)
+    calls, sampled = [], {}
+    original, recording_call = _sampler_recorder(calls, sampled)
+    buf, detach = _runner_log()
+    saved_env = os.environ.pop('AB_OPT_FUSED_CHAIN', None)
+    runs = (('codesign_single', 'test', 2, True),
+            ('seq_design_dock_testset', 'dock_test', 1, False))
+    try:
+        with tempfile.TemporaryDirectory(prefix='chip_smoke_testset_') as tmp:
+            paths = write_mini_sabdab(tmp, n=TESTSET_COMPLEXES)
+            t1 = time.perf_counter()
+            SAbDabDataset(summary_path=paths['summary_path'],
+                          chothia_dir=paths['chothia_dir'],
+                          processed_dir=paths['processed_dir'])
+            print(f'testset: mini-SAbDab of {TESTSET_COMPLEXES} synthetic '
+                  f'complexes preprocessed in {time.perf_counter() - t1:.3f}'
+                  f' s (host)')
+            D.BatchedSampler.__call__ = recording_call
+            gablock.reset_counts()
+            ia.reset_counts()
+            totals = {}
+            for name, split, n, relax in runs:
+                cfg = yaml.safe_load((repo / 'configs' / 'test' /
+                                      f'{name}.yml').read_text())
+                cfg['dataset']['test'].update(paths)
+                model = cfg['model']
+                layers = model['diffusion']['eps_net_opt']['num_layers']
+                steps = model['diffusion']['num_steps']
+                buf.seek(0)
+                buf.truncate()
+                calls.clear()
+                t1 = time.perf_counter()
+                summary = testset.design_for_testset(
+                    cfg, out_root=str(out_root / split),
+                    num_samples=TESTSET_SAMPLES, batch_size=TESTSET_SAMPLES,
+                    seed=0, run_dockq=True, relax=relax)
+                wall = time.perf_counter() - t1
+                text = buf.getvalue()
+                # One variant a complex, each with its stage line.
+                found = [dict(zip(('sample', 'paste_io', 'dockq', 'rank'),
+                                  map(float, m.groups()[2:6])),
+                              samples=int(m.group(2)))
+                         for m in _STAGE_LOG.finditer(text)]
+                _check_calls(f'testset {name} on {split}', calls, n, layers,
+                             steps, TESTSET_SAMPLES)
+                ids = sorted(p.name for p in (out_root / split).iterdir()
+                             if p.is_dir())
+                trees = all(
+                    (out_root / split / sid / f).exists() for sid in ids
+                    for f in ('results.csv', 'aa.csv', 'metadata.json',
+                              'H_CDR3/REF1.pdb',
+                              f'H_CDR3/{TESTSET_SAMPLES - 1:04d}.pdb'))
+                skips = text.count('[relax] skipped for')
+                ok = (len(ids) == n and trees
+                      and _finite_csv(out_root / split /
+                                      'testset_results.csv', n)
+                      and _finite_csv(out_root / split /
+                                      'testset_summary.csv', 1)
+                      and all(math.isfinite(v) for v in summary.values())
+                      and skips == (n if relax else 0)
+                      and len(found) == n)
+                total = {k: sum(f[k] for f in found) for k in found[0]}
+                totals[name] = total
+                print(f'testset {name} on {split} ({n} complexes x '
+                      f'{TESTSET_SAMPLES} samples, float32 config, '
+                      f'{layers} layers, {steps} steps): wall {wall:.3f} s; '
+                      f'stages {_stage_text(total, False)}; DockQ_mean '
+                      f'{summary.get("DockQ_mean")}, AAR_mean '
+                      f'{summary.get("AAR_mean")}; relax skips {skips} '
+                      f'(backends {available_backends()}); '
+                      f'{"checks passed" if ok else "FAILED"} ({smi})')
+                if not ok:
+                    raise SystemExit(f'testset {name} failed its checks')
+            launches = _route_counts()
+            D.BatchedSampler.__call__ = original
+            _check_sampled('testset', sampled, device)
+            # The evaluation pipeline over one complex's samples.
+            sid = sorted(p for p in (out_root / 'test').iterdir()
+                         if p.is_dir())[0]
+            t1 = time.perf_counter()
+            df = evaluate_directory(str(sid))
+            eval_s = time.perf_counter() - t1
+            finite = bool(np.isfinite(df[['rmsd', 'seqid']].to_numpy()).all())
+            print(f'testset eval of {sid.name}: {len(df)} rows in '
+                  f'{eval_s:.3f} s (host), rmsd mean {df["rmsd"].mean():.4f},'
+                  f' seqid mean {df["seqid"].mean():.4f}, finite={finite}')
+            if not (len(df) == TESTSET_SAMPLES and finite):
+                raise SystemExit('evaluate_directory failed its checks')
+    finally:
+        D.BatchedSampler.__call__ = original
+        detach()
+        if saved_env is not None:
+            os.environ['AB_OPT_FUSED_CHAIN'] = saved_env
+    print(f'testset stages ({smi}): ' + '; '.join(
+        f'{name}: {_stage_text(t, False)}' for name, t in totals.items()))
+    print(f'phase 15: {time.perf_counter() - t0:.2f} s')
+    return launches['K1']
+
+
+def phase_optimize(device, smi):
+    """The 3-stage optimization pipeline (see the module docstring, phase
+    16). design-dock is not run: it needs the hdock binary, which the
+    card's machine does not have. Returns K1's launches in stages 1-2."""
+    from ab_opt_tpu_torch.ops import gablock
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.runners import design as D
+    from ab_opt_tpu_torch.runners import optimize as O
+    from ab_opt_tpu_torch.utils.bench_fixture import write_synthetic_complex
+    from ab_opt_tpu_torch.utils.config import load_config
+    t0 = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    root = DESIGN_OUT / 'optimize'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = lambda name: dict(load_config(str(repo / 'configs' / 'test' /
+                                            f'{name}.yml'))[0])
+    seq, dock = cfg('seq_design'), cfg('dock_cdr')
+    calls, sampled = [], {}
+    original, recording_call = _sampler_recorder(calls, sampled)
+    stage_s = {}
+    stages = {'stage 1 (seq design)': 'seq_design_batch',
+              'stage 2 (re-dock)': 'dock_seqs'}
+    saved = {attr: getattr(O, attr) for attr in stages.values()}
+
+    def timed(name, fn):
+        def run(*args):
+            n0 = len(calls)
+            t = time.perf_counter()
+            out = fn(*args)
+            stage_s[name] = (time.perf_counter() - t, calls[n0:])
+            return out
+        return run
+
+    saved_env = os.environ.pop('AB_OPT_FUSED_CHAIN', None)
+    try:
+        # The poses: one dock_cdr request on the synthetic complex.
+        pdb = write_synthetic_complex(str(root / 'cx.pdb'))
+        t1 = time.perf_counter()
+        D.design_for_pdb(D.DesignArgs(
+            pdb_path=pdb, config=dock, num_samples=OPT_POSES,
+            batch_size=OPT_POSES, keep_traj=False, run_dockq=False, seed=0,
+            id='cx', out_root=str(root / 'poses')))
+        pose_dir = root / 'poses' / 'cx' / 'H_CDR3'
+        print(f'optimize: {len(O.scan_poses(str(pose_dir)))} poses from a '
+              f'dock_cdr request in {time.perf_counter() - t1:.3f} s')
+
+        for name, attr in stages.items():
+            setattr(O, attr, timed(name, saved[attr]))
+        D.BatchedSampler.__call__ = recording_call
+        gablock.reset_counts()
+        ia.reset_counts()
+        t1 = time.perf_counter()
+        df = O.optimize_antibody(O.OptimizeArgs(
+            docked_pose_dir=str(pose_dir),
+            seq_design_dir=str(root / 'seq_design'),
+            screen_dir=str(root / 'screen'), design_config=seq,
+            dock_config=dock, heavy_chain_id='H', nums=OPT_NUMS,
+            num_designs=OPT_DESIGNS, max_poses=OPT_MAX_POSES, seed=0,
+            batch_size=OPT_BATCH))
+        wall = time.perf_counter() - t1
+        launches = _route_counts()
+    finally:
+        D.BatchedSampler.__call__ = original
+        for attr, fn in saved.items():
+            setattr(O, attr, fn)
+        if saved_env is not None:
+            os.environ['AB_OPT_FUSED_CHAIN'] = saved_env
+    layers = seq['model']['diffusion']['eps_net_opt']['num_layers']
+    steps = seq['model']['diffusion']['num_steps']
+    n_cand = OPT_MAX_POSES * OPT_DESIGNS
+    for (name, (s, stage_calls)), n, reps in zip(
+            stage_s.items(), (OPT_MAX_POSES, n_cand),
+            (OPT_DESIGNS, OPT_NUMS)):
+        _check_calls(f'optimize {name}', stage_calls, n, layers, steps, reps)
+        sampler_s = sum(c['s'] for c in stage_calls)
+        print(f'optimize {name}: wall {s:.3f} s, sampler calls '
+              f'{sampler_s:.3f} s ({smi})')
+    summary = root / 'screen' / 'screening_summary.csv'
+    finite = _finite_csv(summary, n_cand) and bool(
+        df[['DockQ_avg', 'prmsd_avg']].notna().all().all())
+    print(f'optimize: {len(df)} candidates, DockQ_avg '
+          f'{df["DockQ_avg"].round(4).tolist()}, prmsd_avg '
+          f'{df["prmsd_avg"].round(4).tolist()}, selected '
+          f'{int(df["selected"].sum())}, confident '
+          f'{int(df["confident"].sum())}; wall {wall:.3f} s; launches K1 '
+          f'{launches["K1"]}, K4 '
+          f'{launches["K4"]}, K5 {launches["K5"]}, plain calls '
+          f'{launches["plain"]} ({smi})')
+    if not (len(df) == n_cand and finite
+            and launches['K1'] == layers * steps * (OPT_MAX_POSES + n_cand)
+            and launches['K4'] == launches['K5'] == launches['plain'] == 0):
+        raise SystemExit('the optimize pipeline failed its checks')
+    _check_sampled('optimize', sampled, device)
+    print(f'phase 16: {time.perf_counter() - t0:.2f} s')
+    return launches['K1']
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2152,13 +2483,16 @@ def main():
     fused = phase_fused_variants(device, k1_rows)
     phase_design(device, smi.stdout.strip())
     cli = phase_train_cli(device, smi.stdout.strip())
+    testset_k1 = phase_testset(device, smi.stdout.strip())
+    optimize_k1 = phase_optimize(device, smi.stdout.strip())
 
     kernels = [dict(
         name='gablock', route='cuda', source='ab_opt_tpu_torch/csrc/gablock.cu',
         replaces='ab_opt_tpu/ops/gablock_pallas.py:390', launches=launches,
         max_abs_err=max_err, ms=times[256][0], plain_ms=times[256][1],
         bound_ms=bounds[256][0], bound_by=bounds[256][1], library_ms=None,
-        train_cli_launches=cli['K1'])]
+        train_cli_launches=cli['K1'], testset_launches=testset_k1,
+        optimize_launches=optimize_k1)]
     for key, name, line, n in (('fwd', 'ipa_attention_fwd', 101, k2),
                                ('bwd', 'ipa_attention_bwd', 183, k3)):
         kernels.append(dict(

@@ -70,6 +70,23 @@ class PositionTransition:
         p_next = float(c0) * (p_t - float(c1) * eps_p) + noise
         return _mask_mix(mask_generate, p_next, p_t)
 
+    def denoise_from_p0(self, p_t, p_0, mask_generate, t: int, *, z=None,
+                        generator=None):
+        """Posterior-mean reverse step q(p_{t-1} | p_t, p_0) given the
+        predicted start ``p_0`` (the graph model's step); ``z`` is the
+        standard-normal draw (p_t's shape), zeroed where t <= 1."""
+        s = self.sched
+        mean = (float(s.posterior_mean_coef1[t]) * p_0
+                + float(s.posterior_mean_coef2[t]) * p_t)
+        if t > 1:
+            if z is None:
+                z = torch.randn(p_t.shape, generator=generator,
+                                device=p_t.device)
+            noise = float(np.sqrt(s.posterior_variance[t])) * z
+        else:
+            noise = torch.zeros_like(p_t)
+        return _mask_mix(mask_generate, mean + noise, p_t)
+
     def ddim_step(self, p_t, eps_p, mask_generate, t: int, t_next: int):
         """Deterministic DDIM (eta = 0) jump t -> t_next < t, the strided
         sampler's position step: p_0 recovered from the predicted noise,

@@ -14,10 +14,17 @@ from .layers import AngularEncoding, Embedding, mlp
 
 
 class ResidueEmbedding(nn.Module):
-    """Per-residue features (N, L, feat_dim)."""
+    """Per-residue features (N, L, feat_dim).
+
+    With ``hotspot`` the module also embeds the AbDesign hotspot codes (1
+    non-hotspot, 2 hotspot, 0 padding: ``hotspot_embed``), concatenated
+    last before the MLP, whose input is that much wider. The width is fixed
+    here, so such a module needs the codes at every call (JAX's flax module
+    takes its width from the batch it was initialised on)."""
 
     def __init__(self, feat_dim: int, max_num_atoms: int,
-                 max_aa_types: int = MAX_AA_TYPES, dtype=torch.float32):
+                 max_aa_types: int = MAX_AA_TYPES, dtype=torch.float32,
+                 hotspot: bool = False):
         super().__init__()
         self.max_num_atoms = max_num_atoms
         self.max_aa_types = max_aa_types
@@ -26,11 +33,24 @@ class ResidueEmbedding(nn.Module):
         self.dihed_embed = AngularEncoding()
         in_dim = (2 * feat_dim + max_aa_types * max_num_atoms * 3
                   + self.dihed_embed.get_out_dim(3))
+        if hotspot:
+            self.hotspot_embed = Embedding(10, feat_dim, dtype=dtype)
+            in_dim += feat_dim
+        self.hotspot = hotspot
         self.mlp = mlp(in_dim, (feat_dim * 2, feat_dim, feat_dim, feat_dim),
                        dtype)
 
     def forward(self, aa, res_nb, chain_nb, pos_atoms, mask_atoms,
-                fragment_type, structure_mask=None, sequence_mask=None):
+                fragment_type, structure_mask=None, sequence_mask=None,
+                hotspot=None):
+        if (hotspot is not None) != self.hotspot:
+            raise ValueError(
+                'this ResidueEmbedding was built with hotspot conditioning, '
+                'and the batch has no hotspot_label (the '
+                'patch_around_anchor_hotspot transform writes it)'
+                if self.hotspot else
+                'hotspot codes given to a ResidueEmbedding built without '
+                'hotspot conditioning')
         N, L = aa.shape
         A = self.max_num_atoms
         pos_atoms = pos_atoms[:, :, :A].float()
@@ -64,9 +84,11 @@ class ResidueEmbedding(nn.Module):
             dihed_feat = dihed_feat * dihed_mask[:, :, None]
 
         type_feat = self.type_embed(fragment_type) * (fragment_type > 0)[..., None]
-        feats = torch.cat([aa_feat.float(), crd_feat, dihed_feat,
-                           type_feat.float()], dim=-1)
-        return self.mlp(feats) * mask_residue[:, :, None]
+        feats = [aa_feat.float(), crd_feat, dihed_feat, type_feat.float()]
+        if hotspot is not None:
+            feats.append((self.hotspot_embed(hotspot)
+                          * (hotspot > 0)[..., None]).float())
+        return self.mlp(torch.cat(feats, dim=-1)) * mask_residue[:, :, None]
 
 
 class PairEmbedding(nn.Module):

@@ -22,7 +22,7 @@ import json
 import logging
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -35,6 +35,7 @@ from ..data.collate import PaddingCollate, to_device_batch
 from ..data.transforms import generate_mask_from_contig
 from ..geometry import reconstruct_backbone_partially, so3vec_to_rotation
 from ..models import get_model
+from ..models.diff_gnn import DiffGNN
 from ..models.diffab import DiffAb
 from ..ops.gablock import fused_encoder_chained, gablock_layer
 from ..ops.ipa_attention import ipa_attention_fwd_p2n
@@ -169,7 +170,7 @@ def chunk_seed(seed: int, lo: int) -> int:
     return int(np.random.SeedSequence([seed, lo]).generate_state(1)[0])
 
 
-def random_model(model_cfg: Dict, seed: int) -> DiffAb:
+def random_model(model_cfg: Dict, seed: int) -> Union[DiffAb, DiffGNN]:
     """A model of ``model_cfg`` with random weights drawn from ``seed``
     (the global torch generator is left as it was)."""
     with torch.random.fork_rng(devices=[]):
@@ -210,7 +211,7 @@ class BatchedSampler:
     ``device=None`` runs on the CUDA card (and raises without one); pass
     ``device='cpu'`` to run on the CPU. The model is moved there."""
 
-    def __init__(self, model: DiffAb, device=None,
+    def __init__(self, model: Union[DiffAb, DiffGNN], device=None,
                  sample_structure: bool = True, sample_sequence: bool = True,
                  keep_traj: bool = False, opt_step: Optional[int] = None,
                  stride: int = 1):
@@ -273,7 +274,8 @@ def _antigen_and_patch_mask(data_tmpl, data_cropped):
     return antigen_mask | patch_mask
 
 
-def design_for_pdb(args: DesignArgs, model: Optional[DiffAb] = None) -> Dict:
+def design_for_pdb(args: DesignArgs,
+                   model: Optional[Union[DiffAb, DiffGNN]] = None) -> Dict:
     """Run the full design/dock pipeline for one PDB. Returns the summary
     dict.
 
@@ -321,7 +323,7 @@ def design_for_pdb(args: DesignArgs, model: Optional[DiffAb] = None) -> Dict:
     return design_for_structure(structure, model, cfg, args, log_dir, rng)
 
 
-def design_for_structure(structure, model: DiffAb, cfg: Dict,
+def design_for_structure(structure, model: Union[DiffAb, DiffGNN], cfg: Dict,
                          args: DesignArgs, log_dir: str,
                          rng: Optional[np.random.Generator] = None) -> Dict:
     """Run the variant loop for an already-preprocessed structure.

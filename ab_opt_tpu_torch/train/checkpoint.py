@@ -91,12 +91,21 @@ class _JaxCheckpointUnpickler(pickle.Unpickler):
 
 def read_weights(path: str) -> Dict:
     """``{'config', 'state_dict'}`` of a port checkpoint or a JAX one (its
-    params go through the weight bridge)."""
-    from ..utils.convert import params_to_state_dict
+    params go through the weight bridge of its config's model type:
+    ``diffab`` when the config names none, as the JAX package reads it)."""
+    from ..utils.convert import (diff_gnn_params_to_state_dict,
+                                 params_to_state_dict)
     if is_port_checkpoint(path):
         saved = load_checkpoint(path)
         return {'config': saved['config'], 'state_dict': saved['model']}
     with open(path, 'rb') as f:
         saved = _JaxCheckpointUnpickler(f).load()
+    model_type = ((saved['config'] or {}).get('model') or {}).get(
+        'type', 'diffab')
+    bridges = {'diffab': params_to_state_dict,
+               'diff_gnn': diff_gnn_params_to_state_dict}
+    if model_type not in bridges:
+        raise ValueError(f'{path}: no weight bridge for model type '
+                         f'{model_type!r} (the port reads {sorted(bridges)})')
     return {'config': saved['config'],
-            'state_dict': params_to_state_dict(saved['params'])}
+            'state_dict': bridges[model_type](saved['params'])}

@@ -174,8 +174,11 @@ class Trainer:
         weighted total left in the parameters' ``.grad`` (unclipped).
         Returns the loss dict, detached, with 'overall' added."""
         self.optimizer.zero_grad(set_to_none=True)
+        # ``attention`` is DiffAb's encoder hook; the graph model has none,
+        # and its loss refuses the keyword.
+        kw = {} if attention is None else {'attention': attention}
         losses = self.model.loss(batch, generator=generator, t=t,
-                                 draws=draws, attention=attention)
+                                 draws=draws, **kw)
         total = self._weighted_total(losses)
         total.backward()
         return dict({k: v.detach() for k, v in losses.items()},

@@ -1,11 +1,13 @@
-"""The weight bridge back from flax: DiffAbNet params -> the port's (and the
-reference's) torch state dict.
+"""The weight bridge back from flax: DiffAbNet and DiffGNNNet params -> the
+port's (and the reference's) torch state dicts.
 
-Inverse of ``ab_opt_tpu/utils/torch_convert.py::convert_diffab_state_dict``:
-kernels are transposed back to torch's (out, in), and the planar point
-layout of the JAX package ([x | y | z] blocks, head-major inside) goes back
-to the interleaved (head, point, xyz) layout. Takes numpy (or any array
-castable with ``np.asarray``) leaves; needs no JAX.
+Inverse of ``ab_opt_tpu/utils/torch_convert.py::convert_diffab_state_dict``
+and ``convert_diff_gnn_state_dict``: kernels are transposed back to torch's
+(out, in); the planar point layout of the JAX package ([x | y | z] blocks,
+head-major inside) goes back to the interleaved (head, point, xyz) layout,
+the graph model's edge geometry back to the per-channel-row layout and its
+fused k/v projections back to interleaved k/v columns. Takes numpy (or any
+array castable with ``np.asarray``) leaves; needs no JAX.
 """
 from __future__ import annotations
 
@@ -81,23 +83,29 @@ def ga_block_state_dict(p: Mapping) -> Dict[str, torch.Tensor]:
     return {k[len('block.'):]: v for k, v in sd.items()}
 
 
+def _residue_embed(sd: Dict, prefix: str, re: Mapping):
+    sd[f'{prefix}.aatype_embed.weight'] = _t(re['Embed_0']['embedding'])
+    sd[f'{prefix}.type_embed.weight'] = _t(re['Embed_1']['embedding'])
+    _mlp(sd, f'{prefix}.mlp', re['MLP_0'], (0, 2, 4, 6))
+
+
+def _pair_embed(sd: Dict, prefix: str, pe: Mapping):
+    sd[f'{prefix}.aa_pair_embed.weight'] = _t(pe['Embed_0']['embedding'])
+    sd[f'{prefix}.relpos_embed.weight'] = _t(pe['Embed_1']['embedding'])
+    sd[f'{prefix}.aapair_to_distcoef.weight'] = _t(pe['Embed_2']['embedding'])
+    _linear(sd, f'{prefix}.distance_embed.0', pe['Dense_0'])
+    _linear(sd, f'{prefix}.distance_embed.2', pe['Dense_1'])
+    _mlp(sd, f'{prefix}.out_mlp', pe['MLP_0'], (0, 2, 4))
+
+
 def params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """DiffAbNet params (``{'params': {...}}`` or the inner dict) -> state
     dict for :class:`ab_opt_tpu_torch.models.diffab.DiffAbNet`."""
     p = params.get('params', params)
     sd: Dict[str, torch.Tensor] = {}
-    re, pe, ep = p['residue_embed'], p['pair_embed'], p['eps_net']
-
-    sd['residue_embed.aatype_embed.weight'] = _t(re['Embed_0']['embedding'])
-    sd['residue_embed.type_embed.weight'] = _t(re['Embed_1']['embedding'])
-    _mlp(sd, 'residue_embed.mlp', re['MLP_0'], (0, 2, 4, 6))
-
-    sd['pair_embed.aa_pair_embed.weight'] = _t(pe['Embed_0']['embedding'])
-    sd['pair_embed.relpos_embed.weight'] = _t(pe['Embed_1']['embedding'])
-    sd['pair_embed.aapair_to_distcoef.weight'] = _t(pe['Embed_2']['embedding'])
-    _linear(sd, 'pair_embed.distance_embed.0', pe['Dense_0'])
-    _linear(sd, 'pair_embed.distance_embed.2', pe['Dense_1'])
-    _mlp(sd, 'pair_embed.out_mlp', pe['MLP_0'], (0, 2, 4))
+    ep = p['eps_net']
+    _residue_embed(sd, 'residue_embed', p['residue_embed'])
+    _pair_embed(sd, 'pair_embed', p['pair_embed'])
 
     pre = 'diffusion.eps_net'
     sd[f'{pre}.current_sequence_embedding.weight'] = _t(
@@ -112,4 +120,98 @@ def params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     _layernorm(sd, f'{pre}.prmsd_predictor.layer_norm', pr['LayerNorm_0'])
     for i in range(3):
         _linear(sd, f'{pre}.prmsd_predictor.linear_{i + 1}', pr[f'Dense_{i}'])
+    return sd
+
+
+# --------------------------------------------------------------------------- #
+# The graph model (DiffGNNNet params -> DiffGNN state dict)
+# --------------------------------------------------------------------------- #
+
+
+def _geom_rows(C: int) -> np.ndarray:
+    """``reference[perm[i]] = jax[i]`` over the 2 C^2 geometry rows: JAX
+    lays them out [radial (C^2) | dist (C^2)], the reference per channel
+    row [rad_c1 (C), dist_c1 (C), rad_c2, ...]."""
+    perm = np.empty(2 * C * C, np.int64)
+    for half in range(2):
+        for c1 in range(C):
+            for c2 in range(C):
+                perm[half * C * C + c1 * C + c2] = c1 * 2 * C + half * C + c2
+    return perm
+
+
+def _kv_cols(F: int) -> np.ndarray:
+    """The reference interleaves a fused projection's k and v columns (k =
+    kv[:, 0::2]); JAX splits them in halves: reference column 2i is JAX's
+    column i, 2i + 1 its F + i."""
+    return np.stack([np.arange(F), F + np.arange(F)], axis=-1).reshape(-1)
+
+
+def _linear_geom(sd: Dict, prefix: str, p: Mapping, sections, C: int,
+                 kv: bool = False):
+    """A Dense whose input rows hold a geometry section (``sections``: (width,
+    is_geom) in order), put back in the reference's row order; with ``kv``
+    its output columns interleaved back to the reference's k/v."""
+    k = np.asarray(p['kernel'], np.float32)
+    rows, off = [], 0
+    for width, is_geom in sections:
+        block = k[off:off + width]
+        if is_geom:
+            ref = np.empty_like(block)
+            ref[_geom_rows(C)] = block
+            block = ref
+        rows.append(block)
+        off += width
+    _linear(sd, prefix, dict(p, kernel=np.concatenate(rows, axis=0)),
+            cols=_kv_cols(k.shape[1] // 2) if kv else None)
+
+
+def _mc_egcl(sd: Dict, prefix: str, p: Mapping, F: int, C: int, E: int):
+    geo = 2 * C * C
+    _linear_geom(sd, f'{prefix}.edge_mlp.0', p['Dense_0'],
+                 [(F, False), (F, False), (geo, True), (E, False)], C)
+    for i, name in enumerate(('edge_mlp.2', 'coord_mlp.0', 'coord_mlp.2',
+                              'node_mlp.0', 'node_mlp.2')):
+        _linear(sd, f'{prefix}.{name}', p[f'Dense_{i + 1}'])
+
+
+def diff_gnn_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """DiffGNNNet params (``{'params': {...}}`` or the inner dict) -> state
+    dict for :class:`ab_opt_tpu_torch.models.diff_gnn.DiffGNN`. The
+    reference's per-layer ``time_mlp`` has no counterpart: its forward never
+    runs it, and JAX drops it."""
+    p = params.get('params', params)
+    sd: Dict[str, torch.Tensor] = {}
+    re = p['residue_embed']
+    _residue_embed(sd, 'embed.residue_embed', re)
+    if 'Embed_2' in re:
+        sd['embed.residue_embed.hotspot_embed.weight'] = _t(
+            re['Embed_2']['embedding'])
+    _pair_embed(sd, 'embed.pair_embed', p['pair_embed'])
+
+    g, sq = p['gnn'], p['seqgnn']
+    F = np.asarray(g['linear_in']['kernel']).shape[1]
+    C = np.asarray(g['out_layer']['Dense_3']['kernel']).shape[1]
+    E = (np.asarray(g['out_layer']['Dense_0']['kernel']).shape[0]
+         - 2 * F - 2 * C * C)
+    _linear(sd, 'gnn.linear_in', g['linear_in'])
+    n_layers = sum(k.startswith('gcl_') for k in g)
+    for i in range(n_layers):
+        _mc_egcl(sd, f'gnn.gcl_{i}', g[f'gcl_{i}'], F, C, E)
+        a = g[f'att_{i}']
+        _linear(sd, f'gnn.att_{i}.linear_q', a['linear_q'])
+        _linear_geom(sd, f'gnn.att_{i}.linear_kv', a['linear_kv'],
+                     [(2 * C * C, True), (F, False)], C, kv=True)
+        _linear(sd, f'gnn.att_{i}.coord_mlp.0', a['Dense_0'])
+        _linear(sd, f'gnn.att_{i}.coord_mlp.2', a['Dense_1'])
+    _linear(sd, 'gnn.time_embedding', g['time_embedding'])
+    _mc_egcl(sd, 'gnn.out_layer', g['out_layer'], F, C, E)
+    _linear(sd, 'gnn.linear_out', g['linear_out'])
+
+    _linear(sd, 'seqgnn.linear_q', sq['linear_q'])
+    _linear_geom(sd, 'seqgnn.linear_kv', sq['linear_kv'],
+                 [(2 * C * C, True), (F, False)], C, kv=True)
+    sd['seqgnn.hydropathy_embed.weight'] = _t(sq['Embed_0']['embedding'])
+    sd['seqgnn.charge_embed.weight'] = _t(sq['Embed_1']['embedding'])
+    _mlp(sd, 'seqgnn.mlp', sq, (0, 2, 4))
     return sd

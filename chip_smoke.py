@@ -214,6 +214,26 @@ Phases, each fatal on failure:
      fan-out (L=32 x OPT_DESIGNS, L=32 x OPT_NUMS), K1 against its plain
      version within DENOISER_TOL. design-dock is not run: the card's
      machine has no hdock binary.
+ 17. the graph model (diff_gnn, models/diff_gnn.py over nn/egnn.py; JAX
+     has no Pallas kernel on this path, so it runs as PyTorch ops and
+     launches no hand-written kernel): the training CLI on
+     configs/train/aa_label.yml as written (hotspot, hydropathy and charge
+     labels, bb_pos weighted, dropout 0.1, float32, batch 16, 500 steps)
+     over a mini-SAbDab of CLI_COMPLEXES synthetic complexes, GNN_ITERS
+     steps with validation and one sampling eval (GNN_EVAL) at the last,
+     the launch counts zeroed just before: every loss finite, no K1-K5
+     launch and no plain call, the checkpoint, the best_rmsd checkpoint and
+     the eval's results.csv written; the median s/step after CLI_WARMUP
+     warm-up steps, the eval's wall and samples/s and the peak memory
+     allocated. Then design_for_pdb from the checkpoint it wrote on a
+     mini-SAbDab complex with configs/test/codesign_single.yml,
+     GNN_SAMPLES samples in one sampler call: the file tree, finite
+     scores (the graph model has no pRMSD or perplexity head), the context
+     residues equal to REF1.pdb, no kernel launch; the four stage times,
+     ms per reverse step and the peak memory. Last, one denoiser
+     evaluation (aa logits and z) of that model on the request's crop at
+     fan-out GNN_CPU_REPS on the card against a copy on the CPU, within
+     GNN_CPU_TOL.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds (K1, K2, K3
 and K4 also their launches in phase 14, ``train_cli_launches``: the main
@@ -357,6 +377,18 @@ OPT_MAX_POSES = 2
 OPT_DESIGNS = 4
 OPT_NUMS = 16
 OPT_BATCH = 16
+# The graph-model phase: configs/train/aa_label.yml as written (diff_gnn,
+# float32, batch 16, 500 steps) on a mini-SAbDab of CLI_COMPLEXES synthetic
+# complexes for GNN_ITERS steps, validation and one sampling eval of
+# GNN_EVAL at the last; then a design request from the checkpoint it wrote
+# (configs/test/codesign_single.yml, GNN_SAMPLES samples in one sampler
+# call); then one denoiser evaluation of that model on the request's crop at
+# fan-out GNN_CPU_REPS, on the card against the CPU within GNN_CPU_TOL.
+GNN_ITERS = 10
+GNN_EVAL = {'enabled': True, 'num_items': 2, 'num_samples': 4}
+GNN_SAMPLES = 16
+GNN_CPU_REPS = 2
+GNN_CPU_TOL = 1e-3
 # H100 SXM peaks (NVIDIA data sheet): the bf16 dense tensor-core rate (the
 # kernels' inputs are bf16 on the timed paths) and the HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -1692,11 +1724,13 @@ def _stage_text(t, cold):
             f'{t["rank"]:.3f} s')
 
 
-def _check_design(name, out_dir, stage, launches_of, steps_of, cold=False):
+def _check_design(name, out_dir, stage, launches_of, steps_of, cold=False,
+                  unscored=()):
     """The file tree of tests/test_runner.py for every variant, every score
-    of results.csv finite, every sample's context residues (all but the
-    generated ones) equal to the native patch REF1.pdb at the PDB's 3
-    decimals, and each variant's kernel launches (one sampler call a
+    of results.csv finite (but the columns of the scores in ``unscored``,
+    which the model has no head for), every sample's context residues (all
+    but the generated ones) equal to the native patch REF1.pdb at the PDB's
+    3 decimals, and each variant's kernel launches (one sampler call a
     variant) equal to ``launches_of(variant)``."""
     import csv
     import numpy as np
@@ -1733,7 +1767,9 @@ def _check_design(name, out_dir, stage, launches_of, steps_of, cold=False):
         if st['launches'] != want:
             problems.append(f'{tag}: launches {st["launches"]}, want {want}')
     rows = list(csv.reader((out_dir / 'results.csv').open()))
-    cells = [c for r in rows[1:] for c in r[1:]]
+    keep = [i for i, col in enumerate(rows[0])
+            if i > 0 and col.split('_')[0] not in unscored]
+    cells = [r[i] for r in rows[1:] for i in keep]
     bad = [c for c in cells if not math.isfinite(float(c or 'nan'))]
     if bad or len(rows) != len(meta['items']) + 1:
         problems.append(f'results.csv: {len(rows) - 1} rows, non-finite {bad}')
@@ -1998,6 +2034,26 @@ def _cli_recorders(steps, evals):
         (se, 'evaluate_samples', evaluate, timed_eval)
 
 
+def _root_log_restorer():
+    """The root logger's handlers and level now, and a function that puts
+    them back (train_cli.main installs its own handlers), closing the
+    handlers added since."""
+    import logging
+    root_log = logging.getLogger()
+    handlers, level = root_log.handlers[:], root_log.level
+
+    def restore():
+        for h in root_log.handlers[:]:
+            if h not in handlers:
+                root_log.removeHandler(h)
+                h.close()
+        for h in handlers:
+            if h not in root_log.handlers:
+                root_log.addHandler(h)
+        root_log.setLevel(level)
+    return restore
+
+
 def _check_cli_run(name, trainer, steps, first_it, last_it, device):
     """Every step of a CLI run finite, at the iterations first_it ..
     last_it - 1 in order, on ``device``, each with one K2 and one K3
@@ -2020,7 +2076,6 @@ def _check_cli_run(name, trainer, steps, first_it, last_it, device):
 def phase_train_cli(device, smi):
     """The training CLI (see the module docstring, phase 14). Returns the
     launches of its main run (K1, K2, K3) and of the crop past 256 (K4)."""
-    import logging
     import statistics
     import tempfile
 
@@ -2042,8 +2097,7 @@ def phase_train_cli(device, smi):
     repo = Path(__file__).resolve().parent
     steps, evals = [], []
     patches = _cli_recorders(steps, evals)
-    root_log = logging.getLogger()
-    saved_log = (root_log.handlers[:], root_log.level)
+    restore_log = _root_log_restorer()
     saved_env = os.environ.pop('AB_OPT_FUSED_CHAIN', None)
     try:
         for owner, attr, _, wrapper in patches:
@@ -2189,14 +2243,7 @@ def phase_train_cli(device, smi):
     finally:
         for owner, attr, original, _ in patches:
             setattr(owner, attr, original)
-        for h in root_log.handlers[:]:
-            if h not in saved_log[0]:
-                root_log.removeHandler(h)
-                h.close()
-        for h in saved_log[0]:
-            if h not in root_log.handlers:
-                root_log.addHandler(h)
-        root_log.setLevel(saved_log[1])
+        restore_log()
         if saved_env is not None:
             os.environ['AB_OPT_FUSED_CHAIN'] = saved_env
     print(f'train CLI stages ({smi}): preprocess {prep_s:.3f} s, median '
@@ -2447,6 +2494,177 @@ def phase_optimize(device, smi):
     return launches['K1']
 
 
+def _gnn_cpu_check(model, single, reps, remove, device):
+    """One denoiser evaluation of the graph model on the card and of a copy
+    on the CPU (same weights, the same crop at fan-out ``reps``, the same
+    noisy state at t = T / 2): (max |d aa logits|, max |d z|)."""
+    import copy
+
+    import torch
+    from ab_opt_tpu_torch.data.collate import to_device_batch
+    from ab_opt_tpu_torch.geometry import random_uniform_so3
+    cpu = torch.device('cpu')
+    outs = []
+    for m, dev in ((model, device), (copy.deepcopy(model).to(cpu), cpu)):
+        b = to_device_batch(single, dev)
+        with torch.no_grad():
+            prep = m._prepare(b, *remove).repeat(reps)
+            gen, v0, p0 = prep.gen, prep.v_0, prep.p_0
+            g = torch.Generator().manual_seed(0)
+            v = torch.where(gen[..., None], random_uniform_so3(
+                gen.shape, g).to(dev), v0)
+            p = torch.where(gen[..., None], torch.randn(
+                p0.shape, generator=g).to(dev), p0)
+            aa, z, _, _ = m._denoiser((v, p, m.cfg.num_steps // 2), prep)
+        outs.append((aa.float().cpu(), z.float().cpu()))
+    return tuple(float((a - b).abs().max()) for a, b in zip(*outs))
+
+
+def phase_gnn(device, smi):
+    """The graph model through the training CLI and the design runner (see
+    the module docstring, phase 17)."""
+    import statistics
+    import tempfile
+
+    import torch
+    import yaml
+    from ab_opt_tpu_torch.models import DiffGNN
+    from ab_opt_tpu_torch.ops import gablock
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.runners import design as D
+    from ab_opt_tpu_torch.runners import train_cli
+    from ab_opt_tpu_torch.utils.bench_fixture import write_mini_sabdab
+    from ab_opt_tpu_torch.utils.config import load_config
+    t0 = time.perf_counter()
+    torch.set_grad_enabled(True)
+    repo = Path(__file__).resolve().parent
+    gib = lambda n: n / 2 ** 30
+    steps, evals = [], []
+    patches = _cli_recorders(steps, evals)
+    calls, sampled = [], {}
+    sampler_call, recording_call = _sampler_recorder(calls, sampled)
+    restore_log = _root_log_restorer()
+    saved_env = os.environ.pop('AB_OPT_FUSED_CHAIN', None)
+    log, detach = _runner_log()
+    try:
+        for owner, attr, _, wrapper in patches:
+            setattr(owner, attr, wrapper)
+        with tempfile.TemporaryDirectory(prefix='chip_smoke_gnn_') as tmp:
+            tmp = Path(tmp)
+            paths = write_mini_sabdab(str(tmp), n=CLI_COMPLEXES)
+            cfg = yaml.safe_load((repo / 'configs' / 'train' /
+                                  'aa_label.yml').read_text())
+            for split in ('train', 'val'):
+                cfg['dataset'][split].update(paths)
+            cfg['train'].update(max_iters=GNN_ITERS, val_freq=GNN_ITERS,
+                                sampling_eval=dict(GNN_EVAL))
+            yml = tmp / 'aa_label.yml'
+            yml.write_text(yaml.safe_dump(cfg))
+
+            # The training run, its counts zeroed just before and read after.
+            gablock.reset_counts()
+            ia.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            trainer = train_cli.main(['--config', str(yml), '--logdir',
+                                      str(tmp / 'logs')])
+            wall = time.perf_counter() - t1
+            train_peak = torch.cuda.max_memory_allocated()
+            run = _route_counts()
+            model = trainer.model
+            T = model.cfg.num_steps
+            Lb = steps[0]['batch']['aa'].shape[1] if steps else None
+            step_s = statistics.median(st['s'] for st in steps[CLI_WARMUP:])
+            finite = all(math.isfinite(v) for st in steps
+                         for v in st['losses'].values())
+            print(f'GNN train CLI: aa_label ({type(model).__name__}, '
+                  f'{model.cfg.dtype}, hidden {model.cfg.hidden_size}, '
+                  f'{model.cfg.n_layers} layers, hotspot '
+                  f'{model.cfg.hotspot}, batch {cfg["train"]["batch_size"]},'
+                  f' crop bucket L={Lb}): {len(steps)} steps, finite='
+                  f'{finite}, median {step_s:.4f} s/step over steps '
+                  f'{CLI_WARMUP + 1}-{len(steps)} (min '
+                  f'{min(st["s"] for st in steps[CLI_WARMUP:]):.4f}, max '
+                  f'{max(st["s"] for st in steps[CLI_WARMUP:]):.4f}), first '
+                  f'step {steps[0]["s"]:.4f} s; CLI wall {wall:.3f} s '
+                  f'(preprocessing included); peak memory allocated '
+                  f'{gib(train_peak):.2f} GiB ({smi})')
+            for ev in evals:
+                print(f'GNN train CLI: sampling eval: {ev["samples"]} '
+                      f'samples ({ev["chunks"]} chunk(s), {T} steps) in '
+                      f'{ev["s"]:.3f} s, {ev["samples"] / ev["s"]:.3f} '
+                      f'samples/s ({smi})')
+            print(f'GNN train CLI: launches {run}')
+            log_dir = Path(trainer.log_dir)
+            ckpt = log_dir / 'checkpoints' / f'{GNN_ITERS}.ckpt'
+            best = list((log_dir / 'checkpoints').glob('best_rmsd_*.ckpt'))
+            results = (log_dir / 'sampling_eval' / f'it{GNN_ITERS}' /
+                       'results.csv')
+            if not (isinstance(model, DiffGNN) and finite
+                    and [st['it'] for st in steps] == list(range(GNN_ITERS))
+                    and all(st['k2'] == st['k3'] == 0 for st in steps)
+                    and trainer.device.type == device.type
+                    and len(evals) == 1 and evals[0]['k1'] == 0
+                    and not any(run.values()) and ckpt.exists()
+                    and len(best) == 1 and results.exists()):
+                raise SystemExit('the GNN training CLI failed its checks')
+
+            # A design request from the checkpoint that run wrote.
+            design_cfg = dict(load_config(str(repo / 'configs' / 'test' /
+                                              'codesign_single.yml'))[0])
+            pdb = Path(paths['chothia_dir']) / '1xa0.pdb'
+            out_root = DESIGN_OUT / 'gnn'
+            shutil.rmtree(out_root, ignore_errors=True)
+            D.BatchedSampler.__call__ = recording_call
+            log.seek(0)
+            log.truncate()
+            gablock.reset_counts()
+            ia.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            D.design_for_pdb(D.DesignArgs(
+                pdb_path=str(pdb), ckpt=str(ckpt), config=design_cfg,
+                num_samples=GNN_SAMPLES, batch_size=GNN_SAMPLES, topk=4,
+                seed=17, out_root=str(out_root)))
+            dwall = time.perf_counter() - t1
+            design_peak = torch.cuda.max_memory_allocated()
+            D.BatchedSampler.__call__ = sampler_call
+            drun = _route_counts()
+            stage = _stages_from_log(log.getvalue())
+            total = _check_design(
+                'GNN checkpoint, codesign_single', out_root / pdb.name,
+                stage, lambda it: {'K1': 0, 'K5': 0, 'K4': 0}, lambda it: T,
+                unscored=('prmsd', 'PPL'))
+            (dmodel, single, reps, remove), = sampled.values()
+            Lc = single['aa'].shape[1]
+            print(f'GNN design request: {GNN_SAMPLES} samples, crop bucket '
+                  f'L={Lc}, {T} steps: wall {dwall:.3f} s; stages '
+                  f'{_stage_text(total, False)}; '
+                  f'{1e3 * total["sample"] / T:.2f} ms per reverse step '
+                  f'(the sample stage over {T} steps); peak memory allocated '
+                  f'{gib(design_peak):.2f} GiB; sampler calls {len(calls)}, '
+                  f'launches {drun} ({smi})')
+            if not (isinstance(dmodel, DiffGNN) and len(calls) == 1
+                    and reps == GNN_SAMPLES and not any(drun.values())):
+                raise SystemExit('the GNN design request failed its checks')
+            d = _gnn_cpu_check(dmodel, single, GNN_CPU_REPS, remove, device)
+            print(f'GNN denoiser on the card vs the CPU (its crop, fan-out '
+                  f'{GNN_CPU_REPS}, t={T // 2}, TF32 off): max |d aa '
+                  f'logits|={d[0]:.2e}, max |d z|={d[1]:.2e}')
+            if not max(d) < GNN_CPU_TOL:
+                raise SystemExit('the GNN denoiser on the card disagrees '
+                                 'with the CPU')
+    finally:
+        D.BatchedSampler.__call__ = sampler_call
+        detach()
+        for owner, attr, original, _ in patches:
+            setattr(owner, attr, original)
+        restore_log()
+        if saved_env is not None:
+            os.environ['AB_OPT_FUSED_CHAIN'] = saved_env
+    print(f'phase 17: {time.perf_counter() - t0:.2f} s')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2485,6 +2703,7 @@ def main():
     cli = phase_train_cli(device, smi.stdout.strip())
     testset_k1 = phase_testset(device, smi.stdout.strip())
     optimize_k1 = phase_optimize(device, smi.stdout.strip())
+    phase_gnn(device, smi.stdout.strip())
 
     kernels = [dict(
         name='gablock', route='cuda', source='ab_opt_tpu_torch/csrc/gablock.cu',

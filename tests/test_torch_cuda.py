@@ -2,8 +2,9 @@
 IPA attention kernels (K2, K3, K4), the chained encoder kernel (K5), the
 attention variants (S1-S3) and the fused-GABlock variants (S4)
 against their plain versions, a float32 config's denoiser through K1 and
-K5 (and through K4 past 256 residues), the design runner and the training
-CLI, on an NVIDIA GPU (marker
+K5 (and through K4 past 256 residues), the design runner, the training
+CLI and the graph model's loss and gradients (PyTorch ops) against the
+CPU, on an NVIDIA GPU (marker
 ``cuda``; skips without a card). Imports no JAX, so it also runs where only
 the port is installed:
 
@@ -977,3 +978,51 @@ def test_train_cli_on_card(tmp_path):
     assert (log_dir / 'checkpoints' / '3.ckpt').exists()
     assert list((log_dir / 'checkpoints').glob('best_rmsd_*.ckpt'))
     assert (log_dir / 'sampling_eval' / 'it3' / 'results.csv').exists()
+
+
+@pytest.mark.cuda
+def test_gnn_loss_and_grads_on_card_match_cpu():
+    """The graph model (PyTorch ops; JAX has no Pallas kernel there) at
+    full width, two layers: one loss and its gradients on the card against
+    the same model on the CPU (same weights, batch, t and draws; dropout 0,
+    float32 with TF32 off): each loss within 1e-4 relative, each gradient
+    within 1e-3 of its largest value."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    import copy
+
+    import numpy as np
+    from ab_opt_tpu_torch.models import DiffGNN, DiffGNNConfig
+    from ab_opt_tpu_torch.utils.bench_fixture import synthetic_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    model = DiffGNN(DiffGNNConfig(n_layers=2, dropout=0.0))
+    batch = synthetic_batch(np.random.default_rng(0), N=2, L=64, n_ab=40,
+                            gen_lo=20, gen_hi=30)
+    batch['hotspot_label'] = torch.ones_like(batch['aa'])
+    N, L = batch['aa'].shape
+    g = torch.Generator().manual_seed(1)
+    draws = {'rot_axis': torch.randn(N, L, 3, generator=g),
+             'rot_u': torch.rand(N, L, generator=g),
+             'rot_frac': torch.rand(N, L, generator=g),
+             'rot_gauss': torch.randn(N, L, generator=g),
+             'pos': torch.randn(N, L, 3, generator=g)}
+    terms = ('rot', 'pos', 'bb_pos', 'seq')
+    out = []
+    for dev in ('cpu', 'cuda'):
+        m = copy.deepcopy(model).to(dev)
+        to = lambda d: {k: v.to(dev) for k, v in d.items()}
+        losses = m.loss(to(batch), t=torch.tensor([10, 300], device=dev),
+                        draws=to(draws))
+        sum(losses[k] for k in terms).backward()
+        out.append(({k: float(losses[k].detach()) for k in terms},
+                    {k: p.grad.cpu() for k, p in m.named_parameters()
+                     if p.grad is not None}))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out
+    for k in terms:
+        assert abs(l_gpu[k] - l_cpu[k]) <= 1e-4 * abs(l_cpu[k]), k
+    assert sorted(g_gpu) == sorted(g_cpu)
+    for k, v in g_cpu.items():
+        assert torch.isfinite(g_gpu[k]).all(), k
+        assert float((g_gpu[k] - v).abs().max()) <= 1e-3 * float(
+            v.abs().max()) + 1e-8, k

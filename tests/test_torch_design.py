@@ -15,7 +15,8 @@ against the JAX package's, on a synthetic Chothia complex the test writes
   config writes the file tree of tests/test_runner.py through the real
   sampler (the kernels' plain versions), renumbering through the
   passthrough check; two runs of one seed write the same files;
-* the registry, the chunk seeds and the device default.
+* the registry (both models, and its refusal of an unregistered type),
+  the chunk seeds and the device default.
 """
 import json
 import os
@@ -292,11 +293,15 @@ def test_design_cli_on_the_cpu_writes_the_tree(pdb, tmp_path):
 
 
 def test_registry_chunk_seeds_and_device_default():
-    from ab_opt_tpu_torch.models import DiffAb, get_model
+    from ab_opt_tpu_torch.models import DiffAb, DiffGNN, get_model
     model = get_model(dict(TINY_MODEL, type='diffab'))
     assert isinstance(model, DiffAb) and model.cfg.num_layers == 1
-    with pytest.raises(KeyError, match='diff_gnn'):
-        get_model({'type': 'diff_gnn'})
+    gnn = get_model({'type': 'diff_gnn', 'res_feat_dim': 8,
+                     'edge_feat_dim': 8, 'hidden_size': 8, 'num_steps': 4,
+                     'n_layers': 1})
+    assert isinstance(gnn, DiffGNN) and gnn.cfg.num_steps == 4
+    with pytest.raises(KeyError, match='no_such_model'):
+        get_model({'type': 'no_such_model'})
     seeds = {TD.chunk_seed(s, lo) for s in range(4) for lo in range(0, 64, 16)}
     assert len(seeds) == 16
     assert TD.chunk_seed(0, 16) == TD.chunk_seed(0, 16)

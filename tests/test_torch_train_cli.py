@@ -18,9 +18,11 @@ writes (``utils/bench_fixture.py::write_mini_sabdab``):
 * ``--resume`` (continues at the saved iteration), ``--finetune`` of a port
   checkpoint and of a JAX one (``--finetune_iters``), ``--resume`` of a JAX
   checkpoint and ``--num_devices 2`` refused;
-* every ``configs/train/*.yml`` whose model type the port registers builds
-  its datasets (items equal to the JAX package's) and its model; the
-  ``diff_gnn`` ones raise the registry's KeyError.
+* every ``configs/train/*.yml`` and ``configs/debug.yml`` builds its
+  datasets (items equal to the JAX package's) and its model: ``DiffAb``,
+  or ``DiffGNN`` for the four ``diff_gnn`` configs, whose parameter count
+  at full width equals that of JAX's ``DiffGNN.init`` on a batch with
+  hotspot codes.
 
 The loss values are not held against JAX here: the two packages draw the
 initial weights and the noise from different generators.
@@ -41,7 +43,7 @@ jax = pytest.importorskip('jax')
 
 from ab_opt_tpu_torch import data as T  # noqa: E402
 from ab_opt_tpu_torch.data import loader as TL  # noqa: E402
-from ab_opt_tpu_torch.models import DiffAb, get_model  # noqa: E402
+from ab_opt_tpu_torch.models import DiffAb, DiffGNN, get_model  # noqa: E402
 from ab_opt_tpu_torch.runners import train_cli as TC  # noqa: E402
 from ab_opt_tpu_torch.train import sampling_eval as TE  # noqa: E402
 from ab_opt_tpu_torch.train import trainer as TT  # noqa: E402
@@ -53,8 +55,11 @@ from test_torch_data import assert_same  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_COMPLEXES = 32          # 2 test, 1 dock-test, 20 val, 9 train
 BATCH, ITERS = 4, 4
+# Every training config: configs/train/*.yml and configs/debug.yml (the
+# graph model's developer recipe).
 TRAIN_YMLS = sorted(glob.glob(os.path.join(REPO, 'configs', 'train',
-                                           '*.yml')))
+                                           '*.yml'))) + [
+    os.path.join(REPO, 'configs', 'debug.yml')]
 
 
 @pytest.fixture(scope='module')
@@ -338,11 +343,12 @@ def test_train_configs_build(mini, yml):
     from ab_opt_tpu.data.loader import _fetch_with_resample as Jfetch
     root, paths, _ = mini
     cfg, _ = load_config(yml)
+    model = get_model(cfg['model'])
     if cfg['model']['type'] == 'diff_gnn':
-        with pytest.raises(KeyError, match="'diff_gnn' is not registered"):
-            get_model(cfg['model'])
-        return
-    assert isinstance(get_model(cfg['model']), DiffAb)
+        assert isinstance(model, DiffGNN)
+        assert _n_params(model) == _jax_gnn_params(cfg['model'])
+    else:
+        assert isinstance(model, DiffAb)
     for split in ('train', 'val'):
         ds_cfg = dict(cfg['dataset'][split])
         got = T.get_dataset(dict(ds_cfg, **dict(
@@ -353,6 +359,25 @@ def test_train_configs_build(mini, yml):
         outcomes = [_fetch_first(fetch, ds) for fetch, ds in
                     ((TL._fetch_with_resample, got), (Jfetch, want))]
         assert_same(*outcomes, f'{split}[0]')
+
+
+def _n_params(model):
+    return sum(p.numel() for p in model.parameters())
+
+
+def _jax_gnn_params(model_cfg):
+    """The parameter count of JAX's DiffGNN.init at ``model_cfg`` on a tiny
+    batch with hotspot codes (shapes only: ``jax.eval_shape``)."""
+    from ab_opt_tpu.models import DiffGNN as JDiffGNN
+    from ab_opt_tpu_torch.utils.bench_fixture import synthetic_batch
+    batch = {k: v.numpy() for k, v in synthetic_batch(
+        np.random.default_rng(0), N=1, L=16, n_ab=10, gen_lo=3,
+        gen_hi=6).items()}
+    batch['hotspot_label'] = np.ones_like(batch['aa'])
+    jm = JDiffGNN(dict(model_cfg))
+    shapes = jax.eval_shape(jm.init, jax.random.key(0), batch)
+    return sum(int(np.prod(a.shape))
+               for a in jax.tree_util.tree_leaves(shapes))
 
 
 def _fetch_first(fetch, ds):

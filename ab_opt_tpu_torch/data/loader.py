@@ -7,6 +7,11 @@ worker processes, for when the per-item O(L^2) transform work
 waiting. Every item is drawn from ``(seed, idx, epoch, attempt)`` and
 every shuffle from ``numpy.random.default_rng(seed)``, so the stream does
 not depend on the workers and equals the JAX package's for the same seed.
+
+With ``shard=(rank, ranks)`` a data-parallel rank collates the global batch
+(the same shuffle seed on every rank) and keeps its rows of it
+(``parallel/distributed.py::host_batch_slice``): padding follows the
+longest item of the global batch, as on one device.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
+from ..parallel.distributed import Mesh, host_batch_slice, take_rows
 from .transforms import DISTVIOLATION
 
 _worker_state: dict = {}
@@ -66,7 +72,7 @@ class DataLoader:
                  collate_fn: Callable, shuffle: bool = True,
                  drop_last: bool = False, seed: int = 0,
                  prefetch: int = 2, num_workers: int = 0,
-                 pad_partial: bool = False):
+                 pad_partial: bool = False, shard=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -76,6 +82,9 @@ class DataLoader:
         # start of the epoch order, so every batch has the full batch_size
         # (the training CLI's loader, as the JAX package's).
         self.pad_partial = pad_partial
+        # shard: (rank, ranks); each collated batch is cut to this rank's
+        # rows (batch_size must divide over the ranks).
+        self.shard = shard
         self.rng = np.random.default_rng(seed)
         self.prefetch = prefetch
         self.num_workers = int(num_workers)
@@ -138,7 +147,12 @@ class DataLoader:
             else:
                 items = [_fetch_with_resample(self.dataset, int(i), epoch,
                                               self._seed) for i in idxs]
-            yield self.collate_fn(items)
+            batch = self.collate_fn(items)
+            if self.shard is not None:
+                rank, ranks = self.shard
+                batch = take_rows(batch, host_batch_slice(
+                    len(items), Mesh(ranks, rank)))
+            yield batch
 
     def __iter__(self):
         if self.prefetch <= 0:

@@ -278,6 +278,13 @@ class DiffGNN(nn.Module):
 
     # ------------------------------------------------------------------- train
 
+    def loss_draws(self, N: int, L: int, generator=None, device='cpu'):
+        """(t, draws) of one :meth:`loss` call on an (N, L) batch
+        (``losses.loss_draws``); the dropout masks are not among them and
+        come from the loss call's generator."""
+        return Ls.loss_draws(N, L, self.cfg.num_steps, generator, device,
+                             sequence=False)
+
     def loss(self, batch, generator: Optional[torch.Generator] = None,
              t: Optional[torch.Tensor] = None,
              draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:

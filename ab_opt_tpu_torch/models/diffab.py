@@ -216,6 +216,17 @@ class DiffAb(DiffAbNet):
         mean, scale = self._position_affine(p)
         return p * scale + mean
 
+    def loss_draws(self, N: int, L: int, generator=None, device='cpu'):
+        """(t, draws) of one :meth:`loss` call on an (N, L) batch
+        (``losses.loss_draws``: the trainer draws them for the global batch
+        and each rank keeps its rows)."""
+        cfg = self.cfg
+        return Ls.loss_draws(
+            N, L, cfg.num_steps, generator, device,
+            sequence=cfg.train_sequence,
+            mask_ratio=((cfg.mask_ratio_min, cfg.mask_ratio_max)
+                        if cfg.mask_ratio_min > 0 else None))
+
     def loss(self, batch, generator: Optional[torch.Generator] = None,
              t: Optional[torch.Tensor] = None, draws: Optional[Dict] = None,
              attention=None) -> Dict[str, torch.Tensor]:

@@ -5,12 +5,16 @@ from __future__ import annotations
 import torch
 
 from ..nn.layers import distance_to_bins_onehot
+from ..parallel.distributed import global_sum
 
 
 def masked_mean(x, mask, eps: float = 1e-8):
-    """Mean of ``x`` over the elements where ``mask`` (same shape) is set."""
+    """Mean of ``x`` over the elements where ``mask`` (same shape) is set.
+    Inside ``parallel.distributed.global_batch_sums`` the count is
+    the mask's over every rank's rows (no gradient flows through it), so
+    each rank returns its share of the global batch's mean."""
     mask = mask.to(x.dtype)
-    return (x * mask).sum() / (mask.sum() + eps)
+    return (x * mask).sum() / (global_sum(mask.sum()) + eps)
 
 
 def rotation_matrix_cosine_loss(R_pred, R_true):
@@ -81,3 +85,29 @@ def sequence_perplexity(probs, mask_generate):
     max_probs = torch.softmax(probs.float(), dim=-1).amax(-1)
     m = mask_generate.float()
     return (max_probs * m).sum(-1) / torch.clamp(m.sum(-1), min=1e-8)
+
+
+def loss_draws(N: int, L: int, num_steps: int, generator=None, device='cpu',
+               sequence: bool = True, mask_ratio=None):
+    """Every random draw of one training-loss call on an (N, L) batch, from
+    ``generator`` in a fixed order: ``t`` (N,) and the ``draws`` dict the
+    models' ``loss`` takes ('rot_axis' (N, L, 3), 'rot_u', 'rot_frac',
+    'rot_gauss' (N, L), 'pos' (N, L, 3); with ``sequence`` 'seq_gumbel'
+    (N, L, 20); with ``mask_ratio`` (min, max) 'mask_keep' (N, L), a
+    Bernoulli of one ratio drawn in [min, max)). Every entry has the rows
+    first, so a rank that draws the global batch's and keeps its rows sees
+    the numbers one device would."""
+    u = lambda *s: torch.rand(s, generator=generator, device=device)
+    n = lambda *s: torch.randn(s, generator=generator, device=device)
+    t = torch.randint(0, num_steps, (N,), generator=generator, device=device)
+    draws = {'rot_axis': n(N, L, 3), 'rot_u': u(N, L), 'rot_frac': u(N, L),
+             'rot_gauss': n(N, L), 'pos': n(N, L, 3)}
+    if sequence:
+        tiny = torch.finfo(torch.float32).tiny
+        draws['seq_gumbel'] = -torch.log(-torch.log(
+            u(N, L, 20) * (1.0 - tiny) + tiny))
+    if mask_ratio is not None:
+        lo, hi = mask_ratio
+        ratio = lo + (hi - lo) * u()
+        draws['mask_keep'] = u(N, L) < ratio
+    return t, draws

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..parallel.distributed import global_sum
 from .layers import Embedding, Linear
 
 NUM_AA_TYPES_OUT = 21   # 20 aa + UNK (the reference's num_aa_types)
@@ -66,10 +67,12 @@ def radial_features(x, adj):
     dist = torch.sqrt(d2)
 
     m = adj[..., None, None].to(radial.dtype)
-    norm_r = torch.sqrt(torch.clamp((radial ** 2 * m).sum((0, 1, 2)),
-                                    min=1e-24))
-    norm_d = torch.sqrt(torch.clamp((dist ** 2 * m).sum((0, 1, 2)),
-                                    min=1e-24))
+    # Over every rank's rows in data-parallel training (the global batch's
+    # edges, as one device normalises them).
+    batch_sum = lambda a: global_sum((a ** 2 * m).sum((0, 1, 2)),
+                                     differentiable=True)
+    norm_r = torch.sqrt(torch.clamp(batch_sum(radial), min=1e-24))
+    norm_d = torch.sqrt(torch.clamp(batch_sum(dist), min=1e-24))
     return radial * m / norm_r, dist * m / norm_d, diff
 
 

@@ -1,11 +1,24 @@
-"""Training loop (counterpart of ``ab_opt_tpu/train/trainer.py`` and of the
-train step of ``ab_opt_tpu/parallel/mesh.py::sharded_train_step``):
+"""Training loop (counterpart of ``ab_opt_tpu/train/trainer.py``), its step
+built on ``parallel/mesh.py::sharded_train_step`` as JAX's is:
 
 * the weighted multi-loss objective over the weighted keys only, gradients
   clipped to a global norm (``scale = min(1, max / (norm + 1e-6))``), Adam;
 * validation every ``val_freq`` iterations feeding a plateau LR scheduler;
 * a finite-loss guard that dumps the offending batch and raises;
 * checkpoints that carry the config and resume with the optimizer state.
+
+Under a process group (``n_devices`` ranks, ``parallel/launch.py``) each
+rank trains on its rows of the global batch and the step sums the
+gradients over the ranks: the losses, gradients and parameters are the
+one-device run's on the same global batch, since every rank draws the
+global batch's ``t`` and noise from one generator (seeded alike on every
+rank) and keeps its rows. The draws a loss makes itself (the graph
+model's dropout masks) come from a generator of each rank's own
+(:meth:`Trainer.loss_generator`), so every row gets masks of its own as
+on one device, and only the masks differ from a one-device run.
+Validation is reduced over the ranks, the finite-loss flag too (so every
+rank raises together), and rank 0 alone writes checkpoints and runs the
+sampling eval while the others wait.
 
 The trainer runs on the CUDA card unless the caller asks for the CPU; the
 model's IPA attention then runs through the K2/K3 kernels, and the
@@ -14,6 +27,7 @@ sampler's encoder kernel (K1, or K4 past 256 residues).
 """
 from __future__ import annotations
 
+import array
 import logging
 import os
 import pickle
@@ -25,6 +39,10 @@ import numpy as np
 import torch
 
 from ..data.collate import to_device_batch
+from ..parallel.distributed import (global_batch_sums,
+                                    host_batch_slice, take_rows)
+from ..parallel.mesh import (auto_mesh_for_batch, replicate,
+                             sharded_train_step, weighted_total)
 from ..utils.device import resolve_device
 from .checkpoint import (load_checkpoint, read_weights, require_resumable,
                          save_checkpoint)
@@ -105,17 +123,31 @@ def build_scheduler(cfg: Optional[Dict]):
 
 class Trainer:
     """``device=None`` trains on the CUDA card (and raises without one);
-    pass ``device='cpu'`` to train on the CPU. The model is moved there."""
+    pass ``device='cpu'`` to train on the CPU. The model is moved there.
+
+    ``n_devices``: the ranks to train over (the largest count up to it that
+    divides the config's ``batch_size``; default every rank of the process
+    group, one without a group). Each rank then passes its rows of the
+    global batch to :meth:`train_step`."""
 
     def __init__(self, model, train_cfg: Dict, log_dir: Optional[str] = None,
-                 full_config: Optional[Dict] = None, device=None):
+                 full_config: Optional[Dict] = None, device=None,
+                 n_devices: Optional[int] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = dict(train_cfg)
         self.full_config = full_config or {}
+        self.mesh = auto_mesh_for_batch(int(train_cfg.get('batch_size', 1)),
+                                        n_devices)
+        if self.mesh.rank < 0:
+            raise ValueError(
+                f'batch {train_cfg.get("batch_size")} trains on the first '
+                f'{self.mesh.size} ranks only; start {self.mesh.size}')
+        self.is_main = self.mesh.rank == 0
+        replicate(self.model, self.mesh)
         self.log_dir = log_dir
         self.ckpt_dir = os.path.join(log_dir, 'checkpoints') if log_dir else None
-        if self.ckpt_dir:
+        if self.ckpt_dir and self.is_main:
             os.makedirs(self.ckpt_dir, exist_ok=True)
         opt_cfg = train_cfg.get('optimizer', {})
         self.optimizer = build_optimizer(self.model.parameters(), opt_cfg)
@@ -123,13 +155,23 @@ class Trainer:
         self.loss_weights = dict(train_cfg.get('loss_weights', {}))
         self.max_grad_norm = float(train_cfg.get('max_grad_norm', 100.0))
         self.lr = float(opt_cfg.get('lr', 1e-4))
+        self.step_fn = sharded_train_step(
+            self.model, self.optimizer, self.mesh,
+            loss_weights=self.loss_weights, max_grad_norm=self.max_grad_norm)
         self.iteration = 0
         self._pending_checks = deque()
+        # The global losses of every step this trainer took (key -> one
+        # value a step), read one step late with the finite flag, and the
+        # average val loss of every validation by iteration.
+        self.loss_history: Dict[str, array.array] = {}
+        self.val_history: Dict[int, float] = {}
 
     # ------------------------------------------------------------ checkpoints
 
     def save(self, extra: Optional[Dict] = None) -> Optional[str]:
-        if not self.ckpt_dir:
+        """Rank 0 writes the checkpoint (the module's own state dict, which
+        resumes at any rank count); other ranks write nothing."""
+        if not (self.ckpt_dir and self.is_main):
             return None
         path = os.path.join(self.ckpt_dir, f'{self.iteration}.ckpt')
         return save_checkpoint(
@@ -163,22 +205,46 @@ class Trainer:
             group['lr'] = lr
 
     def _weighted_total(self, losses: Dict) -> torch.Tensor:
-        # With explicit weights only the weighted terms train.
-        w = self.loss_weights
-        keys = [k for k in losses if k in w] if w else list(losses)
-        return sum(losses[k] * w.get(k, 1.0) for k in keys)
+        return weighted_total(losses, self.loss_weights)
+
+    def rank_draws(self, batch: Dict, generator=None):
+        """(t, draws) for this rank's rows ``batch``: drawn for the global
+        batch (the rows of every rank) from ``generator`` and cut to this
+        rank's rows, so the numbers do not depend on the rank count."""
+        N, L = batch['aa'].shape
+        n = N * self.mesh.size
+        t, draws = self.model.loss_draws(n, L, generator, self.device)
+        rows = host_batch_slice(n, self.mesh)
+        return t[rows], take_rows(draws, rows)
+
+    def loss_generator(self, generator, stream: int = 0):
+        """This rank's own generator for the draws a loss makes itself (the
+        graph model's dropout masks) at this iteration: seeded from
+        ``generator``'s seed, the iteration, the rank and ``stream`` (0 the
+        train step, 1 validation). Every rank's rows then get masks of
+        their own, as one device draws every row's, and ``generator``,
+        which draws the global batch's ``t`` and noise, advances alike on
+        every rank. None for None."""
+        if generator is None:
+            return None
+        seed = np.random.SeedSequence(
+            [generator.initial_seed(), self.iteration, self.mesh.rank,
+             stream]).generate_state(1)[0]
+        return torch.Generator(device=generator.device).manual_seed(int(seed))
 
     def loss_and_grads(self, batch: Dict, generator=None, t=None, draws=None,
                        attention=None) -> Dict:
         """The losses of one device batch, with the gradients of their
-        weighted total left in the parameters' ``.grad`` (unclipped).
-        Returns the loss dict, detached, with 'overall' added."""
+        weighted total left in the parameters' ``.grad`` (unclipped); the
+        draws the loss makes itself come from :meth:`loss_generator`, as
+        in :meth:`train_step`. Returns the loss dict, detached, with
+        'overall' added."""
         self.optimizer.zero_grad(set_to_none=True)
         # ``attention`` is DiffAb's encoder hook; the graph model has none,
         # and its loss refuses the keyword.
         kw = {} if attention is None else {'attention': attention}
-        losses = self.model.loss(batch, generator=generator, t=t,
-                                 draws=draws, **kw)
+        losses = self.model.loss(batch, generator=self.loss_generator(
+            generator), t=t, draws=draws, **kw)
         total = self._weighted_total(losses)
         total.backward()
         return dict({k: v.detach() for k, v in losses.items()},
@@ -186,18 +252,19 @@ class Trainer:
 
     def train_step(self, batch: Dict, generator=None, t=None, draws=None,
                    defer_nan_check: bool = False) -> Dict:
-        """One optimizer step on ``batch`` (numpy or tensors). Returns the
-        loss dict as device scalars. The finite check is one device flag;
-        with ``defer_nan_check`` the host reads it one step late, so it
-        never waits for the step it just queued."""
-        losses = self.loss_and_grads(to_device_batch(batch, self.device),
-                                     generator, t, draws)
-        # Scales every gradient by min(1, max / (global norm + 1e-6)), the
-        # JAX train step's clip.
-        torch.nn.utils.clip_grad_norm_(self.model.parameters(),
-                                       self.max_grad_norm)
-        self.optimizer.step()
-        finite = torch.stack([torch.isfinite(v) for v in losses.values()]).all()
+        """One optimizer step on ``batch`` (numpy or tensors; this rank's
+        rows of the global batch). ``t`` and ``draws`` are this rank's rows
+        (default :meth:`rank_draws` from ``generator``); the loss's own
+        draws come from :meth:`loss_generator`. Returns the global loss
+        dict as device scalars. The finite check is one device flag,
+        reduced over the ranks; with ``defer_nan_check`` the host reads it
+        one step late, so it never waits for the step it just queued."""
+        dev_batch = to_device_batch(batch, self.device)
+        if t is None and draws is None:
+            t, draws = self.rank_draws(dev_batch, generator)
+        losses = self.step_fn(dev_batch, generator=self.loss_generator(
+            generator), t=t, draws=draws)
+        finite = losses.pop('_finite')
         self._pending_checks.append((self.iteration, finite, batch, losses))
         if defer_nan_check:
             while len(self._pending_checks) > 1:
@@ -209,20 +276,26 @@ class Trainer:
 
     def _check_oldest(self):
         it, finite, batch, losses = self._pending_checks.popleft()
-        if not bool(finite):
-            losses = {k: float(v) for k, v in losses.items()}
+        # One read of the flag and the losses together.
+        ok, *values = torch.stack([finite.float(), *losses.values()]).tolist()
+        if not ok:
+            losses = dict(zip(losses, values))
             self._dump_nan_state(batch, losses, it)
             raise FloatingPointError(f'Non-finite loss at it {it}: {losses}')
+        for k, v in zip(losses, values):
+            self.loss_history.setdefault(k, array.array('d')).append(v)
 
     def flush_nan_checks(self):
         while self._pending_checks:
             self._check_oldest()
 
     def _dump_nan_state(self, batch, losses, iteration):
-        """Persist the offending batch and losses next to the logs."""
+        """Persist the offending batch (this rank's rows) and losses next to
+        the logs."""
         if not self.log_dir:
             return
-        path = os.path.join(self.log_dir, f'nan_dump_it{iteration}.pkl')
+        rank = '' if self.is_main else f'_rank{self.mesh.rank}'
+        path = os.path.join(self.log_dir, f'nan_dump_it{iteration}{rank}.pkl')
         as_np = lambda v: v.detach().cpu().numpy() if torch.is_tensor(v) else v
         with open(path, 'wb') as f:
             pickle.dump({'batch': {k: as_np(v) for k, v in batch.items()},
@@ -231,11 +304,35 @@ class Trainer:
 
     @torch.no_grad()
     def validate(self, val_loader: Iterable, generator=None) -> float:
-        """Average weighted validation loss; feeds the scheduler."""
-        tape = [float(self._weighted_total(self.model.loss(
-                    to_device_batch(b, self.device), generator=generator)))
-                for b in val_loader]
-        avg = float(np.mean(tape)) if tape else float('nan')
+        """Average weighted validation loss over the global val batches
+        (every rank reads them whole); feeds the scheduler. Each batch's
+        draws are the global batch's. Under a process group each rank
+        computes its rows of a batch whose size divides over the ranks, and
+        rank 0 alone a batch that does not; one all-reduce then gives every
+        rank the same losses, and the same learning rate. The loss's own
+        draws (dropout masks) come from this rank's
+        :meth:`loss_generator`, so ``generator`` advances alike on every
+        rank even where rank 0 computes a batch alone."""
+        mesh, tape = self.mesh, []
+        own = self.loss_generator(generator, stream=1)
+        for b in val_loader:
+            b = to_device_batch(b, self.device)
+            N, L = b['aa'].shape
+            t, draws = self.model.loss_draws(N, L, generator, self.device)
+            if N % mesh.size == 0:
+                rows = host_batch_slice(N, mesh)
+                with global_batch_sums(mesh):
+                    losses = self.model.loss(
+                        take_rows(b, rows), generator=own, t=t[rows],
+                        draws=take_rows(draws, rows))
+            elif self.is_main:
+                losses = self.model.loss(b, generator=own, t=t, draws=draws)
+            else:
+                tape.append(torch.zeros((), device=self.device))
+                continue
+            tape.append(self._weighted_total(losses).float())
+        tape = mesh.all_reduce_(torch.stack(tape)) if tape else None
+        avg = float(tape.mean()) if tape is not None else float('nan')
         if self.scheduler is not None and np.isfinite(avg):
             new_lr = self.scheduler.step(avg, self.lr)
             if new_lr != self.lr:
@@ -284,14 +381,17 @@ class Trainer:
         (``sampling_eval_samples`` samples each) and keep the best
         checkpoint by CDR-H3 CA-RMSD (the global RMSD when no H3 items
         exist); per-CDR metrics and sample PDBs land under
-        ``<log_dir>/sampling_eval/it<iteration>/``."""
+        ``<log_dir>/sampling_eval/it<iteration>/``. Under a process group
+        ``train_iterator`` yields this rank's rows of each global batch;
+        rank 0 alone saves and runs the sampling eval, the other ranks wait
+        for it at a barrier."""
         max_iters = max_iters or int(self.cfg.get('max_iters', 1000))
         val_freq = int(self.cfg.get('val_freq', 1000))
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed + 1)
 
         best_tracker = None
-        if sampling_eval_items:
+        if sampling_eval_items and self.is_main:
             from .sampling_eval import BestCheckpointTracker
             best_tracker = BestCheckpointTracker(
                 self.ckpt_dir or (self.log_dir or '.'), metric='rmsd')
@@ -318,6 +418,7 @@ class Trainer:
                 self.flush_nan_checks()
                 avg = self.validate(val_loader, generator)
                 logger.info('val it %d | loss %.4f', self.iteration, avg)
+                self.val_history[self.iteration] = avg
                 self.save(extra={'avg_val_loss': avg})
                 if best_tracker is not None:
                     # Each eval's sampler seed: the run's seed and the
@@ -326,7 +427,9 @@ class Trainer:
                                         sampling_eval_samples,
                                         seed + 2 + self.iteration,
                                         best_tracker)
+                self.mesh.barrier()
         self.flush_nan_checks()
         if val_loader is None:
             self.save()
+            self.mesh.barrier()
         return self.model

@@ -116,11 +116,24 @@ def params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         _ga_block(sd, f'{pre}.encoder.blocks.{i}', ep['encoder'][f'block_{i}'])
     for name in ('eps_crd_net', 'eps_rot_net', 'eps_seq_net'):
         _mlp(sd, f'{pre}.{name}', ep[name], (0, 2, 4))
-    pr = ep['prmsd_predictor']
-    _layernorm(sd, f'{pre}.prmsd_predictor.layer_norm', pr['LayerNorm_0'])
-    for i in range(3):
-        _linear(sd, f'{pre}.prmsd_predictor.linear_{i + 1}', pr[f'Dense_{i}'])
+    _per_residue_predictor(sd, f'{pre}.prmsd_predictor',
+                           ep['prmsd_predictor'])
     return sd
+
+
+def _per_residue_predictor(sd: Dict, prefix: str, p: Mapping):
+    _layernorm(sd, f'{prefix}.layer_norm', p['LayerNorm_0'])
+    for i in range(3):
+        _linear(sd, f'{prefix}.linear_{i + 1}', p[f'Dense_{i}'])
+
+
+def per_residue_predictor_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax PerResiduePredictor's params (``{'params': {...}}`` or the inner
+    dict; the pLDDT head's too) -> a ``nn.layers.PerResiduePredictor`` state
+    dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _per_residue_predictor(sd, 'head', params.get('params', params))
+    return {k[len('head.'):]: v for k, v in sd.items()}
 
 
 # --------------------------------------------------------------------------- #

@@ -234,11 +234,42 @@ Phases, each fatal on failure:
      evaluation (aa logits and z) of that model on the request's crop at
      fan-out GNN_CPU_REPS on the card against a copy on the CPU, within
      GNN_CPU_TOL.
+ 18. data parallelism (parallel/, the training CLI's --num_devices): parts
+     a and d run in one spawn of two gloo ranks sharing the card
+     (parallel/launch.py, parallel/rehearse.py), b in one NCCL rank, c in
+     the CLI's own ranks: a. DiffAb at
+     full width (bf16, 6 layers), global batch TRAIN_BATCH at L=128 (row i
+     generating L/4 + 4 + i residues, so the two shards' counts differ),
+     DP_STEPS steps on two gloo ranks sharing the card (rank r's rows, the
+     global batch's draws) against the one-process Trainer step on the
+     same batch and draws: every loss within LOSS_RTOL, the first step's
+     gradient cosine and global norm within the training gate; the first
+     step against the two halves' gradients accumulated in one process
+     (each rounded to bf16 before the float32 sum, as a rank's is) within
+     DP_ACC_RTOL and DP_ACC_COS, the cosines of both with the one-process
+     step printed; the ranks' losses equal, assert_replicated_params_equal after the steps, one K2
+     and one K3 launch a layer a step in each rank and no plain call; b.
+     the same step in one NCCL rank through sharded_train_step, against
+     the one-process step (bitwise equality printed, the training gate
+     enforced), and the all-reduce of the gradients timed; c. the
+     training CLI's main (ab_opt_tpu_torch.runners.train_cli) with
+     configs/train/codesign_single.yml (float32) on a mini-SAbDab of
+     DP_CLI_COMPLEXES, --num_devices 2 --dist_backend gloo against
+     --num_devices 1 for DP_CLI_ITERS steps and one val pass: the losses
+     of every step and the val loss, as the runs return them, within
+     DP_CLI_RTOL, one val line in the log (rank 0's), one checkpoint,
+     which resumes in one process; d. a fan-out of 2 x DP_FANOUT of one
+     complex (L=128, bf16, 100 steps) through sharded_sample_fn on two gloo ranks: each rank's
+     rows against a one-process sample of them with that rank's seed
+     (within TOL; bitwise equality printed), the ranks' rows differ, 600
+     K1 launches a rank and no plain call. Two ranks share one card here:
+     a rehearsal of the wiring, not a speed-up.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds (K1, K2, K3
 and K4 also their launches in phase 14, ``train_cli_launches``: the main
 CLI run's, and the crop past 256's for K4; K1 also ``testset_launches``
-and ``optimize_launches``, phases 15 and 16).
+and ``optimize_launches``, phases 15 and 16; K1, K2 and K3 also
+``dp_launches``, phase 18's by rank: K1 in part d, K2 and K3 in part a).
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -389,6 +420,24 @@ GNN_EVAL = {'enabled': True, 'num_items': 2, 'num_samples': 4}
 GNN_SAMPLES = 16
 GNN_CPU_REPS = 2
 GNN_CPU_TOL = 1e-3
+# Phase 18, data parallelism: DP_STEPS steps of two gloo ranks sharing the
+# card; DP_ALL_REDUCES timed all-reduces of the gradients at world size 1
+# (NCCL); the CLI at 2 ranks against 1 for DP_CLI_ITERS float32 steps on a
+# mini-SAbDab of DP_CLI_COMPLEXES (20 val, 3 train), losses within
+# DP_CLI_RTOL (only the order of the sums differs); sharded
+# sampling of DP_FANOUT rows a rank from seeds DP_SEED + rank.
+DP_STEPS = 3
+# The step against its halves accumulated in one process: only the order
+# of float32 sums may differ.
+DP_ACC_COS = 0.99999
+DP_ACC_RTOL = 1e-5
+DP_ALL_REDUCES = 20
+DP_CLI_COMPLEXES = 26
+DP_CLI_ITERS = 4
+DP_CLI_RTOL = 1e-4
+DP_FANOUT = 128
+DP_SEED = 31
+DP_WALL_S = 300           # each spawn of ranks, and the CLI's process
 # H100 SXM peaks (NVIDIA data sheet): the bf16 dense tensor-core rate (the
 # kernels' inputs are bf16 on the timed paths) and the HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -898,16 +947,9 @@ def phase_slice(device):
 def _train_draws(N, Ln, device, seed, num_steps=100):
     """t and every noise draw of one DiffAb.loss call, from one generator."""
     import torch
+    from ab_opt_tpu_torch.models.losses import loss_draws
     g = torch.Generator(device=device).manual_seed(seed)
-    u = lambda *s: torch.rand(*s, generator=g, device=device)
-    n = lambda *s: torch.randn(*s, generator=g, device=device)
-    tiny = torch.finfo(torch.float32).tiny
-    t = torch.randint(0, num_steps, (N,), generator=g, device=device)
-    return t, {'rot_axis': n(N, Ln, 3), 'rot_u': u(N, Ln),
-               'rot_frac': u(N, Ln), 'rot_gauss': n(N, Ln),
-               'pos': n(N, Ln, 3),
-               'seq_gumbel': -torch.log(-torch.log(
-                   u(N, Ln, 20) * (1.0 - tiny) + tiny))}
+    return loss_draws(N, Ln, num_steps, g, device)
 
 
 def _step_vs_plain(trainer, batch):
@@ -2128,7 +2170,7 @@ def phase_train_cli(device, smi):
             ia.reset_counts()
             t1 = time.perf_counter()
             trainer = train_cli.main(['--config', str(yml), '--logdir',
-                                      str(tmp / 'logs')])
+                                      str(tmp / 'logs')]).trainer
             wall = time.perf_counter() - t1
             run = _route_counts()
             _check_cli_run('run', trainer, steps, 0, CLI_ITERS, device)
@@ -2189,14 +2231,14 @@ def phase_train_cli(device, smi):
             steps.clear()
             resumed = train_cli.main(['--config', str(yml), '--resume',
                                       str(last), '--max_iters',
-                                      str(CLI_ITERS)])
+                                      str(CLI_ITERS)]).trainer
             _check_cli_run(f'resume from {last.name}', resumed, steps,
                            int(last.stem), CLI_ITERS, device)
             steps.clear()
             tuned = train_cli.main(['--config', str(yml), '--logdir',
                                     str(tmp / 'finetune'), '--finetune',
                                     str(last), '--finetune_iters',
-                                    str(CLI_FINETUNE)])
+                                    str(CLI_FINETUNE)]).trainer
             _check_cli_run(f'finetune from {last.name}', tuned, steps, 0,
                            CLI_FINETUNE, device)
 
@@ -2567,7 +2609,7 @@ def phase_gnn(device, smi):
             torch.cuda.reset_peak_memory_stats()
             t1 = time.perf_counter()
             trainer = train_cli.main(['--config', str(yml), '--logdir',
-                                      str(tmp / 'logs')])
+                                      str(tmp / 'logs')]).trainer
             wall = time.perf_counter() - t1
             train_peak = torch.cuda.max_memory_allocated()
             run = _route_counts()
@@ -2665,6 +2707,299 @@ def phase_gnn(device, smi):
     print(f'phase 17: {time.perf_counter() - t0:.2f} s')
 
 
+def _dp_batch(N, Ln, seed):
+    """The training slice's synthetic complex (phase 6), N rows, row i
+    generating L/4 + 4 + i residues: the ranks' shards differ in their
+    generated-residue counts, as real CDR batches do."""
+    import numpy as np
+    from ab_opt_tpu_torch.utils.bench_fixture import synthetic_batch
+    batch = {k: v.numpy() for k, v in synthetic_batch(
+        np.random.default_rng(seed), N=N, L=Ln, n_ab=int(Ln * 0.7),
+        gen_lo=Ln // 4, gen_hi=Ln // 4 + 8).items()}
+    gen = np.zeros_like(batch['generate_flag'])
+    for i in range(N):
+        gen[i, Ln // 4:Ln // 4 + 4 + i] = True
+    batch['generate_flag'] = gen
+    return batch
+
+
+def _dp_gate(name, got, want, grads=None):
+    """The training gate (phase 6's): every loss of every step within
+    LOSS_RTOL relative; with ``grads`` (got, want) the first step's
+    gradient cosine and global norms."""
+    import torch
+    rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+              for g, w in zip(got, want) for k in w)
+    finite = all(math.isfinite(v) for g in got for v in g.values())
+    ok = finite and rel <= LOSS_RTOL and len(got) == len(want)
+    text = f'{name}: {len(got)} steps, max loss rel {rel:.3e}'
+    if grads is not None:
+        a, b = (g.double() for g in grads)
+        cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+        na, nb = float(a.norm()), float(b.norm())
+        ok = ok and cos >= GRAD_COS and abs(na / nb - 1) <= GRAD_NORM_RTOL
+        text += (f', first step gradient cosine {cos:.8f}, norms {na:.6f} / '
+                 f'{nb:.6f}, max |d| {float((a - b).abs().max()):.3e} of '
+                 f'max |g| {float(b.abs().max()):.3e}, bitwise '
+                 f'{torch.equal(a, b)}')
+    print(text)
+    if not ok:
+        raise SystemExit(f'{name} fails the training gate')
+
+
+def _dp_accumulated(name, dp, one, acc):
+    """The first step of a data-parallel run ``dp`` against the halves
+    accumulated in one process ``acc`` (rehearse.accumulate): every loss
+    within DP_ACC_RTOL, the gradients' cosine at least DP_ACC_COS and
+    their norms within DP_ACC_RTOL; the cosines of both with the
+    one-process step ``one`` printed beside."""
+    import torch
+    cos = lambda a, b: float(torch.nn.functional.cosine_similarity(
+        a.double(), b.double(), dim=0))
+    a, b, w = dp['grads'], acc['grads'], one['grads']
+    rel = max(abs(dp['losses'][0][k] - acc['losses'][k])
+              / max(abs(acc['losses'][k]), 1e-12) for k in acc['losses'])
+    norms = float(a.double().norm()) / float(b.double().norm())
+    print(f'{name} vs the halves accumulated in one process: max loss rel '
+          f'{rel:.3e}, gradient cosine {cos(a, b):.8f}, norm ratio '
+          f'{norms:.8f}, bitwise {torch.equal(a, b)}; cosine with the '
+          f'one-process step: ranks {cos(a, w):.8f}, accumulated '
+          f'{cos(b, w):.8f}')
+    if not (rel <= DP_ACC_RTOL and cos(a, b) >= DP_ACC_COS
+            and abs(norms - 1) <= DP_ACC_RTOL):
+        raise SystemExit(f'{name} disagrees with the accumulated halves')
+
+
+def phase_dp(device, smi):
+    """Data-parallel training and sharded sampling (see the module
+    docstring, phase 18). Returns each kernel's launches in the phase, a
+    list by rank (K2/K3 of part a, K1 of part d)."""
+    from ab_opt_tpu_torch.parallel import launch, rehearse
+    t0 = time.perf_counter()
+    train_job, sample_job = _dp_jobs()
+    t1 = time.perf_counter()
+    ranks = launch.spawn(rehearse.run_jobs, 2, 'gloo', device.type,
+                         args=([('train', train_job),
+                                ('sample', sample_job)],), threads=2,
+                         wall_s=DP_WALL_S)
+    print(f'dp: parts a and d in one spawn of 2 gloo ranks on {device}: '
+          f'{time.perf_counter() - t1:.3f} s from spawn to exit')
+    k2, k3 = _dp_steps(device, smi, [r['train'] for r in ranks], train_job)
+    k1 = _dp_sampling(device, smi, [r['sample'] for r in ranks], sample_job)
+    _dp_cli(device, smi)
+    print(f'phase 18: {time.perf_counter() - t0:.2f} s')
+    return {'K1': k1, 'K2': k2, 'K3': k3}
+
+
+def _dp_jobs():
+    """Part a's training job (DiffAb at full width, bf16, DP_STEPS steps on
+    one global batch with the global batch's draws) and part d's sampling
+    job (a fan-out of 2 x DP_FANOUT of one complex), for
+    ``parallel/rehearse.py``."""
+    import numpy as np
+    import torch
+    from ab_opt_tpu_torch.models import DiffAb, DiffAbConfig
+    from ab_opt_tpu_torch.train import DIFFAB_TRAIN_CONFIG
+    cfg = DiffAbConfig(dtype='bfloat16')
+    torch.manual_seed(2)
+    model = DiffAb(cfg)
+    gdraws = torch.Generator().manual_seed(7)
+    draws = []
+    for _ in range(DP_STEPS):
+        t, d = model.loss_draws(TRAIN_BATCH, L, gdraws)
+        draws.append((t.numpy(), {k: v.numpy() for k, v in d.items()}))
+    train_job = dict(
+        model=('diffab', dataclasses.asdict(cfg), model.state_dict()),
+        train_cfg=DIFFAB_TRAIN_CONFIG,
+        batches=[_dp_batch(TRAIN_BATCH, L, seed=1)] * DP_STEPS, draws=draws,
+        grads=True)
+    torch.manual_seed(0)
+    sampler = DiffAb(cfg)
+    one_row = _dp_batch(1, L, seed=0)
+    sample_job = dict(
+        model=('diffab', dataclasses.asdict(cfg), sampler.state_dict()),
+        batch={k: np.repeat(v, 2 * DP_FANOUT, 0) for k, v in one_row.items()},
+        seed=DP_SEED, fanout=True)
+    return train_job, sample_job
+
+
+def _dp_steps(device, smi, dp, job):
+    """Phase 18 a (the ranks' results ``dp``) and b; returns the K2 and K3
+    launches of part a by rank."""
+    import torch
+    from ab_opt_tpu_torch.parallel import launch, rehearse
+    torch.set_grad_enabled(True)
+    layers = job['model'][1]['num_layers']
+    counts = job['batches'][0]['generate_flag'].sum(1)
+    half = TRAIN_BATCH // 2
+    one = rehearse.run_jobs([('train', job)])['train']
+    print(f'dp step: 2 gloo ranks, global batch {TRAIN_BATCH} at L={L}, bf16, '
+          f'{layers} layers; generated residues {counts[:half].sum()} / '
+          f'{counts[half:].sum()} by rank')
+    _dp_gate('dp step, 2 ranks vs one process', dp[0]['losses'],
+             one['losses'], (dp[0]['grads'], one['grads']))
+    # The step's own reference: the two halves' gradients accumulated in
+    # one process, each rounded to bf16 before the sum as a rank's is.
+    acc = rehearse.accumulate(job['model'], job['train_cfg'],
+                              job['batches'][0], job['draws'][0])
+    _dp_accumulated('dp step', dp[0], one, acc)
+    per_step = {(r, (c['K2'], c['K3'], c['plain']))
+                for r, d in enumerate(dp) for c in d['launches']}
+    print(f'dp step: (rank, (K2, K3, plain) a step) {sorted(per_step)}; '
+          f'ranks agree on the losses {dp[0]["losses"] == dp[1]["losses"]}; '
+          'assert_replicated_params_equal passed in both ranks')
+    for r, d in enumerate(dp):
+        print(f'dp step: rank {r} s/step '
+              + ', '.join(f'{s:.4f}' for s in d['seconds'])
+              + '; one process s/step '
+              + ', '.join(f'{s:.4f}' for s in one['seconds']) + f' ({smi})')
+    if per_step != {(r, (layers, layers, 0)) for r in range(2)} \
+            or dp[0]['losses'] != dp[1]['losses']:
+        raise SystemExit('dp step: launches or rank agreement failed')
+
+    # b. One NCCL rank: the same step through init_process_group('nccl')
+    # and sharded_train_step, against the one-process step.
+    backend = 'nccl' if device.type == 'cuda' else 'gloo'
+    t1 = time.perf_counter()
+    nccl = launch.spawn(rehearse.run_jobs, 1, backend, device.type, args=(
+        [('train', dict(job, via='step', time_all_reduce=DP_ALL_REDUCES))],),
+        threads=2, wall_s=DP_WALL_S)[0]['train']
+    ar = sorted(nccl['all_reduce_ms'])
+    print(f'dp {backend}: world size 1 ({time.perf_counter() - t1:.3f} s '
+          f'from spawn to exit); all-reduce of the '
+          f'{nccl["all_reduce_floats"]} float32 gradients: median '
+          f'{ar[len(ar) // 2]:.4f} ms, min {ar[0]:.4f} ms over {len(ar)} '
+          f'({smi})')
+    _dp_gate(f'dp {backend} vs one process', nccl['losses'], one['losses'],
+             (nccl['grads'], one['grads']))
+    return ([sum(c['K2'] for c in d['launches']) for d in dp],
+            [sum(c['K3'] for c in d['launches']) for d in dp])
+
+
+def _dp_sampling(device, smi, ranks, job):
+    """Phase 18 d: the ranks' rows of the fan-out against one process;
+    returns K1's launches by rank."""
+    import torch
+    from ab_opt_tpu_torch.data.collate import to_device_batch
+    from ab_opt_tpu_torch.parallel.rehearse import build_model
+    torch.set_grad_enabled(False)
+    out = ranks[0]['out']
+    m = build_model(job['model'], device)
+    single = to_device_batch({k: v[:1] for k, v in job['batch'].items()},
+                             device)
+    worst, bitwise = 0.0, True
+    for r in range(2):
+        gen = torch.Generator(device=device).manual_seed(DP_SEED + r)
+        t1 = time.perf_counter()
+        want = m.sample(single, generator=gen, num_replicas=DP_FANOUT)
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+        one_s = time.perf_counter() - t1
+        rows = slice(r * DP_FANOUT, (r + 1) * DP_FANOUT)
+        for k in ('v', 'p'):
+            a, b = out[k][rows].float(), want[k].float().cpu()
+            bitwise &= torch.equal(a, b)
+            worst = max(worst, float((a - b).abs().max()))
+        bitwise &= torch.equal(out['s'][rows], want['s'].cpu())
+        print(f'dp sampling: rank {r}: {DP_FANOUT} rows in '
+              f'{ranks[r]["seconds"]:.3f} s, K1 launches '
+              f'{ranks[r]["launches"]["K1"]}, plain calls '
+              f'{ranks[r]["launches"]["plain"]}; one process {one_s:.3f} s '
+              f'for the same rows ({smi})')
+    gen_mask = torch.as_tensor(job['batch']['generate_flag'][0])
+    differ = not torch.allclose(out['p'][0][gen_mask],
+                                out['p'][DP_FANOUT][gen_mask])
+    k1 = [r['launches']['K1'] for r in ranks]
+    cfg = m.cfg
+    print(f'dp sampling: fan-out {2 * DP_FANOUT} over 2 ranks, L={L}, '
+          f'{cfg.num_steps} steps: rows equal to one process bitwise '
+          f'{bitwise}, max |d| {worst:.3e}; rows differ across ranks {differ}')
+    if not (worst <= TOL and differ
+            and k1 == [cfg.num_steps * cfg.num_layers] * 2
+            and all(r['launches']['plain'] == 0 for r in ranks)
+            and out['p'].shape[0] == 2 * DP_FANOUT
+            and torch.isfinite(out['p']).all()):
+        raise SystemExit('sharded sampling failed its checks')
+    return k1
+
+
+def _dp_cli(device, smi):
+    """Phase 18 c: the CLI's main at 2 ranks against 1, float32 (the
+    CUDA-core K2/K3 route), each run's returned losses; then its checkpoint
+    resumed in this process."""
+    import tempfile
+
+    import torch
+    import yaml
+    from ab_opt_tpu_torch.runners import train_cli
+    from ab_opt_tpu_torch.utils.bench_fixture import write_mini_sabdab
+    torch.set_grad_enabled(True)
+    repo = Path(__file__).resolve().parent
+    restore_log = _root_log_restorer()
+    try:
+        with tempfile.TemporaryDirectory(prefix='chip_smoke_dp_') as tmp:
+            tmp = Path(tmp)
+            paths = write_mini_sabdab(str(tmp), n=DP_CLI_COMPLEXES)
+            ycfg = yaml.safe_load((repo / 'configs' / 'train' /
+                                   'codesign_single.yml').read_text())
+            for split in ('train', 'val'):
+                ycfg['dataset'][split].update(paths)
+            ycfg['train'].update(max_iters=DP_CLI_ITERS,
+                                 val_freq=DP_CLI_ITERS,
+                                 sampling_eval={'enabled': False})
+            yml = tmp / 'codesign_single.yml'
+            yml.write_text(yaml.safe_dump(ycfg))
+            common = ['--config', str(yml), '--seed', '7',
+                      '--device', device.type]
+            t1 = time.perf_counter()
+            one = train_cli.main(common + ['--logdir', str(tmp / 'one')])
+            one_wall = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            dp = train_cli.main(common + ['--logdir', str(tmp / 'dp'),
+                                          '--num_devices', '2',
+                                          '--dist_backend', 'gloo'])
+            dp_wall = time.perf_counter() - t1
+            pairs = [(g, w) for k, ws in one.losses.items()
+                     for g, w in zip(dp.losses.get(k, []), ws)]
+            pairs += [(dp.val_losses.get(it, math.nan), w)
+                      for it, w in one.val_losses.items()]
+            rel = max(abs(g - w) / max(abs(w), 1e-12) for g, w in pairs)
+            steps = {k: len(v) for k, v in dp.losses.items()}
+            text = (Path(dp.log_dir) / 'train.log').read_text()
+            ckpts = sorted(p.name for p in
+                           (Path(dp.log_dir) / 'checkpoints').iterdir())
+            print(f'dp CLI: --num_devices 2 --dist_backend gloo '
+                  f'({dp_wall:.3f} s, spawn included) vs 1 '
+                  f'({one_wall:.3f} s), float32 codesign_single.yml, '
+                  f'{DP_CLI_ITERS} steps and one val pass: ranks '
+                  f'{dp.ranks}, steps by loss {steps}, val iterations '
+                  f'{sorted(dp.val_losses)}, max loss rel {rel:.3e}; '
+                  f'checkpoints {ckpts} ({smi})')
+            if not (dp.ranks == 2 and dp.iteration == DP_CLI_ITERS
+                    and sorted(dp.losses) == sorted(one.losses)
+                    and set(steps.values()) == {DP_CLI_ITERS}
+                    and sorted(dp.val_losses) == sorted(one.val_losses)
+                    == [DP_CLI_ITERS]
+                    and rel <= DP_CLI_RTOL
+                    and 'data-parallel: 2 ranks, gloo backend' in text
+                    and text.count(f'trainer: val it {DP_CLI_ITERS} | ') == 1
+                    and ckpts == [f'{DP_CLI_ITERS}.ckpt']):
+                raise SystemExit('dp CLI failed its checks')
+            resumed = train_cli.main(common + [
+                '--resume', str(Path(dp.log_dir) / 'checkpoints' /
+                                f'{DP_CLI_ITERS}.ckpt'),
+                '--max_iters', str(DP_CLI_ITERS + 1)])
+            last = {k: v for k, v in resumed.losses.items()}
+            print(f'dp CLI: its checkpoint resumed in one process: iteration '
+                  f'{resumed.iteration}, losses {last}')
+            if not (resumed.iteration == DP_CLI_ITERS + 1
+                    and all(len(v) == 1 and math.isfinite(v[0])
+                            for v in last.values())):
+                raise SystemExit('dp CLI checkpoint does not resume')
+    finally:
+        restore_log()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2704,6 +3039,7 @@ def main():
     testset_k1 = phase_testset(device, smi.stdout.strip())
     optimize_k1 = phase_optimize(device, smi.stdout.strip())
     phase_gnn(device, smi.stdout.strip())
+    dp = phase_dp(device, smi.stdout.strip())
 
     kernels = [dict(
         name='gablock', route='cuda', source='ab_opt_tpu_torch/csrc/gablock.cu',
@@ -2711,7 +3047,7 @@ def main():
         max_abs_err=max_err, ms=times[256][0], plain_ms=times[256][1],
         bound_ms=bounds[256][0], bound_by=bounds[256][1], library_ms=None,
         train_cli_launches=cli['K1'], testset_launches=testset_k1,
-        optimize_launches=optimize_k1)]
+        optimize_launches=optimize_k1, dp_launches=dp['K1'])]
     for key, name, line, n in (('fwd', 'ipa_attention_fwd', 101, k2),
                                ('bwd', 'ipa_attention_bwd', 183, k3)):
         kernels.append(dict(
@@ -2719,7 +3055,8 @@ def main():
             source='ab_opt_tpu_torch/csrc/ipa_attention.cu',
             replaces=f'ab_opt_tpu/ops/ipa_pallas.py:{line}', launches=n,
             **attn[key], library_ms=None,
-            train_cli_launches=cli['K2' if key == 'fwd' else 'K3']))
+            train_cli_launches=cli['K2' if key == 'fwd' else 'K3'],
+            dp_launches=dp['K2' if key == 'fwd' else 'K3']))
     kernels.append(dict(
         name='ipa_attention_fwd_p2n', route='cuda',
         source='ab_opt_tpu_torch/csrc/ipa_attention.cu',

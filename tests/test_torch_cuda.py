@@ -3,8 +3,9 @@ IPA attention kernels (K2, K3, K4), the chained encoder kernel (K5), the
 attention variants (S1-S3) and the fused-GABlock variants (S4)
 against their plain versions, a float32 config's denoiser through K1 and
 K5 (and through K4 past 256 residues), the design runner, the training
-CLI and the graph model's loss and gradients (PyTorch ops) against the
-CPU, on an NVIDIA GPU (marker
+CLI, the graph model's loss and gradients (PyTorch ops) against the CPU,
+and data-parallel training (two gloo ranks sharing the card: a step and
+the CLI) against one process, on an NVIDIA GPU (marker
 ``cuda``; skips without a card). Imports no JAX, so it also runs where only
 the port is installed:
 
@@ -965,7 +966,7 @@ def test_train_cli_on_card(tmp_path):
     tr.Trainer.train_step = recording_step
     try:
         trainer = train_cli.main(['--config', str(yml), '--logdir',
-                                  str(tmp_path / 'logs')])
+                                  str(tmp_path / 'logs')]).trainer
     finally:
         tr.Trainer.train_step = step
     assert trainer.device.type == 'cuda' and trainer.iteration == 3
@@ -1026,3 +1027,160 @@ def test_gnn_loss_and_grads_on_card_match_cpu():
         assert torch.isfinite(g_gpu[k]).all(), k
         assert float((g_gpu[k] - v).abs().max()) <= 1e-3 * float(
             v.abs().max()) + 1e-8, k
+
+
+@pytest.mark.cuda
+def test_dp_step_on_two_gloo_ranks_on_card():
+    """Data-parallel training on the card: two gloo ranks sharing it, a
+    float32 DiffAb (full widths, two layers; K2/K3 on the CUDA-core route)
+    at global batch 4, L=48, rows generating 2 to 5 residues, two steps
+    (one K2 and one K3 launch a layer a step in each rank, no plain call)
+    against the one-process step on the same batch and draws: each loss
+    within 1e-5 relative, the first step's gradients within float32
+    reassociation (cosine >= 0.99999, global norm within 1e-5). The bf16
+    step is the next test's."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    import numpy as np
+    from ab_opt_tpu_torch.models import DiffAb, DiffAbConfig
+    from ab_opt_tpu_torch.parallel import launch, rehearse
+    from ab_opt_tpu_torch.utils.bench_fixture import synthetic_batch
+    torch.manual_seed(0)
+    kw = dict(num_layers=2)
+    model = DiffAb(DiffAbConfig(**kw))
+    batch = {k: v.numpy() for k, v in synthetic_batch(
+        np.random.default_rng(0), N=4, L=48, n_ab=32, gen_lo=10,
+        gen_hi=14).items()}
+    batch['generate_flag'][:] = False
+    for i in range(4):
+        batch['generate_flag'][i, 10:12 + i] = True
+    g = torch.Generator().manual_seed(1)
+    draws = []
+    for _ in range(2):
+        t, d = model.loss_draws(4, 48, g)
+        draws.append((t.numpy(), {k: v.numpy() for k, v in d.items()}))
+    job = dict(model=('diffab', kw, model.state_dict()),
+               train_cfg={'batch_size': 4, 'max_grad_norm': 100.0,
+                          'optimizer': {'type': 'adam', 'lr': 1e-4}},
+               batches=[batch, batch], draws=draws, grads=True)
+    ranks = launch.spawn(rehearse.run_jobs, 2, 'gloo', 'cuda',
+                         args=([('train', job)],), threads=2, wall_s=300)
+    one = rehearse.run_jobs([('train', job)])['train']
+    got = ranks[0]['train']
+    rel = {(i, k): abs(g_[k] - w[k]) / abs(w[k])
+           for i, (g_, w) in enumerate(zip(got['losses'], one['losses']))
+           for k in w}
+    assert max(rel.values()) <= 1e-5, rel
+    a, b = got['grads'].double(), one['grads'].double()
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    norms = float(a.norm()) / float(b.norm())
+    assert cos >= 0.99999 and abs(norms - 1) <= 1e-5, (cos, norms)
+    for r in ranks:
+        assert [(c['K2'], c['K3'], c['plain'])
+                for c in r['train']['launches']] == [(2, 2, 0)] * 2
+    assert ranks[1]['train']['losses'] == got['losses']
+
+
+@pytest.mark.cuda
+def test_dp_bf16_step_matches_accumulated_halves_on_card(capsys):
+    """The previous test's step in bf16 (K2/K3 on the tile route): each
+    rank's weight gradients are rounded to bf16 before the ranks' float32
+    sum, so the step is not the one-process step's bf16 rounding but that
+    of the two halves' gradients accumulated in one process
+    (``rehearse.accumulate``). Held to that: each loss within 1e-5
+    relative, the first step's gradient cosine >= 0.99999 and norm within
+    1e-5; one K2 and one K3 launch a layer a step in each rank. The
+    cosines of both with the one-process step are printed."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    import numpy as np
+    from ab_opt_tpu_torch.models import DiffAb, DiffAbConfig
+    from ab_opt_tpu_torch.ops.ipa_attention import attention_plan
+    from ab_opt_tpu_torch.parallel import launch, rehearse
+    from ab_opt_tpu_torch.utils.bench_fixture import synthetic_batch
+    torch.manual_seed(0)
+    kw = dict(num_layers=2, dtype='bfloat16')
+    model = DiffAb(DiffAbConfig(**kw))
+    batch = {k: v.numpy() for k, v in synthetic_batch(
+        np.random.default_rng(0), N=4, L=48, n_ab=32, gen_lo=10,
+        gen_hi=14).items()}
+    batch['generate_flag'][:] = False
+    for i in range(4):
+        batch['generate_flag'][i, 10:12 + i] = True
+    g = torch.Generator().manual_seed(1)
+    draws = []
+    for _ in range(2):
+        t, d = model.loss_draws(4, 48, g)
+        draws.append((t.numpy(), {k: v.numpy() for k, v in d.items()}))
+    train_cfg = {'batch_size': 4, 'max_grad_norm': 100.0,
+                 'optimizer': {'type': 'adam', 'lr': 1e-4}}
+    job = dict(model=('diffab', kw, model.state_dict()), train_cfg=train_cfg,
+               batches=[batch, batch], draws=draws, grads=True)
+    ranks = launch.spawn(rehearse.run_jobs, 2, 'gloo', 'cuda',
+                         args=([('train', job)],), threads=2, wall_s=300)
+    one = rehearse.run_jobs([('train', job)])['train']
+    acc = rehearse.accumulate(job['model'], train_cfg, batch, draws[0])
+    got = ranks[0]['train']
+    cos = lambda a, b: float(torch.nn.functional.cosine_similarity(
+        a.double(), b.double(), dim=0))
+    a, b, w = got['grads'], acc['grads'], one['grads']
+    with capsys.disabled():
+        print(f'\nbf16 dp step, 2 ranks: gradient cosine with the '
+              f'accumulated halves {cos(a, b):.8f} (bitwise '
+              f'{torch.equal(a, b)}); with the one-process step: ranks '
+              f'{cos(a, w):.8f}, accumulated halves {cos(b, w):.8f}')
+    plan = attention_plan(torch.bfloat16, 2, 48, 12)
+    assert plan['fwd']['route'] == plan['bwd']['route'] == 'tile'
+    rel = max(abs(got['losses'][0][k] - v) / abs(v)
+              for k, v in acc['losses'].items())
+    assert rel <= 1e-5, rel
+    norms = float(a.double().norm()) / float(b.double().norm())
+    assert cos(a, b) >= 0.99999 and abs(norms - 1) <= 1e-5, (cos(a, b),
+                                                             norms)
+    for r in ranks:
+        assert [(c['K2'], c['K3'], c['plain'])
+                for c in r['train']['launches']] == [(2, 2, 0)] * 2
+
+
+@pytest.mark.cuda
+def test_train_cli_on_two_ranks_on_card(tmp_path):
+    """python -m ab_opt_tpu_torch.runners.train_cli --num_devices 2
+    --dist_backend gloo on the card (two ranks sharing it; float32, the
+    CUDA-core K2/K3 route), full widths, two layers, four diffusion steps,
+    batch 16 on a mini-SAbDab, 3 steps and one val pass: the losses of
+    every step within 1e-4 relative of --num_devices 1 for the same
+    seed (as the runs return them), one checkpoint."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    import os
+
+    import yaml
+    from ab_opt_tpu_torch.runners import train_cli
+    from ab_opt_tpu_torch.utils.bench_fixture import write_mini_sabdab
+    paths = write_mini_sabdab(str(tmp_path / 'sabdab'), n=26)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, 'configs', 'train',
+                           'codesign_single.yml')) as f:
+        cfg = yaml.safe_load(f)
+    cfg['model']['diffusion'].update(num_steps=4,
+                                     eps_net_opt={'num_layers': 2})
+    cfg['train'].update(max_iters=3, val_freq=3,
+                        sampling_eval={'enabled': False})
+    for split in ('train', 'val'):
+        cfg['dataset'][split].update(paths)
+    yml = tmp_path / 'cfg.yml'
+    yml.write_text(yaml.safe_dump(cfg))
+    runs = {n: train_cli.main(['--config', str(yml), '--logdir',
+                               str(tmp_path / f'logs{n}'), '--seed', '7',
+                               '--num_devices', str(n),
+                               '--dist_backend', 'gloo'])
+            for n in (1, 2)}
+    assert runs[2].ranks == 2 and runs[2].iteration == 3
+    want, got = runs[1].losses, runs[2].losses
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert len(v) == len(got[k]) == 3, k
+        for i in range(3):
+            assert abs(got[k][i] - v[i]) <= 1e-4 * abs(v[i]), (i, k)
+    assert os.listdir(os.path.join(runs[2].log_dir, 'checkpoints')) == [
+        '3.ckpt']

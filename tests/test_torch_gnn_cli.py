@@ -68,7 +68,7 @@ def tiny_yml(tmp_path_factory):
 def test_train_cli_writes_a_gnn_checkpoint(tiny_yml, tmp_path):
     from ab_opt_tpu_torch.runners import train_cli
     trainer = train_cli.main(['--config', tiny_yml, '--logdir',
-                              str(tmp_path), '--device', 'cpu'])
+                              str(tmp_path), '--device', 'cpu']).trainer
     assert isinstance(trainer.model, DiffGNN)
     assert trainer.iteration == ITERS and trainer.device.type == 'cpu'
     log_dir = trainer.log_dir

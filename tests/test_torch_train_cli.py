@@ -17,7 +17,8 @@ writes (``utils/bench_fixture.py::write_mini_sabdab``):
   first on the example batch of ``init_params``);
 * ``--resume`` (continues at the saved iteration), ``--finetune`` of a port
   checkpoint and of a JAX one (``--finetune_iters``), ``--resume`` of a JAX
-  checkpoint and ``--num_devices 2`` refused;
+  checkpoint and ``--num_devices 2 --dist_backend nccl`` on the CPU
+  refused;
 * every ``configs/train/*.yml`` and ``configs/debug.yml`` builds its
   datasets (items equal to the JAX package's) and its model: ``DiffAb``,
   or ``DiffGNN`` for the four ``diff_gnn`` configs, whose parameter count
@@ -166,7 +167,7 @@ def _port_cli(argv, monkeypatch):
         return out
 
     monkeypatch.setattr(TT.Trainer, 'train_step', recording_step)
-    trainer = TC.main(argv + ['--device', 'cpu'])
+    trainer = TC.main(argv + ['--device', 'cpu']).trainer
     monkeypatch.undo()
     return trainer, log, losses
 
@@ -313,8 +314,11 @@ def test_cli_resume_and_finetune(mini, jax_run, tmp_path, monkeypatch):
         _port_cli(['--config', ymls['port'], '--resume',
                    os.path.join(jax_dir, 'checkpoints', '2.ckpt')],
                   monkeypatch)
-    with pytest.raises(ValueError, match='torch.distributed'):
-        TC.main(base + ['--num_devices', '2', '--device', 'cpu'])
+    # Data-parallel ranks on the CPU need gloo: nccl is refused before any
+    # rank starts (tests/test_torch_parallel_cli.py trains at 2 ranks).
+    with pytest.raises(ValueError, match='nccl'):
+        TC.main(base + ['--num_devices', '2', '--device', 'cpu',
+                        '--dist_backend', 'nccl'])
 
 
 def test_finetune_loads_the_jax_weights(mini, jax_run, monkeypatch):

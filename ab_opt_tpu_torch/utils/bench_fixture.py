@@ -3,6 +3,10 @@
 draws in the same order, so the same ``rng`` gives the same complex."""
 from __future__ import annotations
 
+import contextlib
+import sys
+import types
+
 import numpy as np
 import torch
 
@@ -203,3 +207,104 @@ def write_mini_sabdab(root: str, n: int = 44, n_antigen: int = 170) -> dict:
         f.write('\n'.join(lines) + '\n')
     return {'summary_path': summary, 'chothia_dir': chothia,
             'processed_dir': os.path.join(root, 'processed')}
+
+
+# --------------------------------------------------------------------------- #
+# Reference-format checkpoints
+# --------------------------------------------------------------------------- #
+
+# The source of a stand-in ``easydict`` module: its EasyDict as the package
+# defines it (a dict whose items are also attributes, nested dicts and the
+# dicts in lists converted). The reference pickles its config as
+# ``easydict.EasyDict``; the package is not a dependency of this repo.
+EASYDICT_SOURCE = '''
+class EasyDict(dict):
+    def __init__(self, d=None, **kwargs):
+        super().__init__()
+        for k, v in dict(d or {}, **kwargs).items():
+            setattr(self, k, v)
+
+    def __setattr__(self, name, value):
+        if isinstance(value, (list, tuple)):
+            value = type(value)(EasyDict(x) if isinstance(x, dict) else x
+                                for x in value)
+        elif isinstance(value, dict) and not isinstance(value, EasyDict):
+            value = EasyDict(value)
+        super().__setattr__(name, value)
+        super().__setitem__(name, value)
+
+    __setitem__ = __setattr__
+'''
+
+
+@contextlib.contextmanager
+def easydict_standin():
+    """A module ``easydict`` built from :data:`EASYDICT_SOURCE` in
+    ``sys.modules`` for the block only (the module it replaced, if any, is
+    put back); yields its EasyDict."""
+    module = types.ModuleType('easydict')
+    exec(EASYDICT_SOURCE, module.__dict__)
+    before = sys.modules.get('easydict')
+    sys.modules['easydict'] = module
+    try:
+        yield module.EasyDict
+    finally:
+        if before is None:
+            sys.modules.pop('easydict', None)
+        else:
+            sys.modules['easydict'] = before
+
+
+def reference_buffers(model) -> dict:
+    """Keys a reference state dict holds besides the learnable weights, for
+    a port ``DiffAb`` or ``DiffGNN``: the diffusion's position affine and
+    variance schedules (the reference registers them as buffers) and, for
+    the graph model, each layer's unused ``time_mlp``. Their names and
+    shapes follow the reference's module layout as far as this repository
+    records it; no released file has been read to check them. The port has
+    no parameter of these names, so a converter drops them all."""
+    steps = model.cfg.num_steps + 1
+    gnn = hasattr(model, 'gnn')
+    pre = '' if gnn else 'diffusion.'
+    out = {f'{pre}position_mean': torch.zeros(1, 1, 3 if not gnn else 1),
+           f'{pre}position_scale': torch.full((1, 1, 1), 10.0),
+           f'{pre}_dummy': torch.empty(0)}
+    for trans in ('trans_pos', 'trans_rot') + (() if gnn else ('trans_seq',)):
+        for name in ('betas', 'alpha_bars', 'alphas', 'sigmas'):
+            out[f'{pre}{trans}.var_sched.{name}'] = torch.linspace(
+                0.0, 1.0, steps)
+    if gnn:
+        F = model.cfg.hidden_size
+        for i in range(model.cfg.n_layers):
+            out[f'gnn.gcl_{i}.time_mlp.weight'] = torch.zeros(F, F)
+            out[f'gnn.gcl_{i}.time_mlp.bias'] = torch.zeros(F)
+    return out
+
+
+def write_reference_checkpoint(path: str, model, config: dict,
+                               iteration: int = 250000) -> str:
+    """Write ``model`` (a port ``DiffAb`` or ``DiffGNN``, which keeps the
+    reference's parameter names and layouts) as the reference's training
+    loop saves a checkpoint: ``torch.save`` of ``{config, model, optimizer,
+    scheduler, iteration}``, the config an ``easydict.EasyDict`` (through
+    :func:`easydict_standin`), the state dict with
+    :func:`reference_buffers`, an Adam state over its first two parameters
+    and a plateau scheduler's state. Returns ``path``."""
+    state = dict(model.state_dict(), **reference_buffers(model))
+    first = list(model.state_dict().values())[:2]
+    optimizer = {
+        'state': {i: {'step': torch.tensor(float(iteration)),
+                      'exp_avg': torch.zeros_like(p),
+                      'exp_avg_sq': torch.zeros_like(p)}
+                  for i, p in enumerate(first)},
+        'param_groups': [{'lr': 1e-4, 'betas': (0.9, 0.999), 'eps': 1e-8,
+                          'weight_decay': 0.0, 'amsgrad': False,
+                          'params': list(range(len(state)))}]}
+    scheduler = {'factor': 0.8, 'patience': 10, 'mode': 'min', 'best': 1.25,
+                 'num_bad_epochs': 0, 'last_epoch': iteration // 1000,
+                 '_last_lr': [1e-4], 'min_lrs': [5e-6]}
+    with easydict_standin() as EasyDict:
+        torch.save({'config': EasyDict(config), 'model': state,
+                    'optimizer': optimizer, 'scheduler': scheduler,
+                    'iteration': iteration}, path)
+    return path

@@ -264,12 +264,38 @@ Phases, each fatal on failure:
      (within TOL; bitwise equality printed), the ranks' rows differ, 600
      K1 launches a rank and no plain call. Two ranks share one card here:
      a rehearsal of the wiring, not a speed-up.
+ 19. released reference checkpoints (utils/torch_convert.py,
+     train/checkpoint.py::read_reference_checkpoint,
+     runners/convert_checkpoint.py) and the notebook walkthrough
+     (examples/): three full-width reference-format files, a dock model of
+     configs/test/dock_cdr.yml, a seq-design model of seq_design.yml and a
+     graph model of configs/train/aa_label.yml, weights from REF_SEED + i
+     (utils/bench_fixture.py::write_reference_checkpoint: the config
+     pickled as easydict.EasyDict through a stand-in module, buffer-like
+     extra keys, an Adam and a scheduler state), and port checkpoints of
+     the same weights; the three converted by the module's main in one
+     child process that never saw the stand-in (timed); then
+     examples/ab_opt_pipeline.py's main on the synthetic complex with the
+     two converted DiffAb files, on the card by default, at REF_POSES
+     poses x REF_DESIGNS designs x REF_SCREENS re-docks, the launch counts
+     zeroed just before: stage 0 one sampler call, stage 1 one a pose,
+     stage 2 one a design, each with one K1 launch a layer a step and no
+     K4, K5 or plain call; screening_summary.csv finite with a row a
+     candidate; each stage's wall; then ab_opt_analysis on its trees (the
+     plots only where matplotlib is installed). Then each stage's first
+     call through K1 against its plain version within DENOISER_TOL, one
+     denoiser evaluation at the first reverse step's noise level through
+     K1 from each converted DiffAb file bitwise equal to the port
+     checkpoint's, and the graph model's denoiser on the card from its
+     converted file bitwise equal to the port checkpoint's (its crop from
+     the design runner on codesign_single.yml).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds (K1, K2, K3
 and K4 also their launches in phase 14, ``train_cli_launches``: the main
 CLI run's, and the crop past 256's for K4; K1 also ``testset_launches``
 and ``optimize_launches``, phases 15 and 16; K1, K2 and K3 also
-``dp_launches``, phase 18's by rank: K1 in part d, K2 and K3 in part a).
+``dp_launches``, phase 18's by rank: K1 in part d, K2 and K3 in part a;
+K1 also ``reference_launches``, phase 19's walkthrough).
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -438,6 +464,17 @@ DP_CLI_RTOL = 1e-4
 DP_FANOUT = 128
 DP_SEED = 31
 DP_WALL_S = 300           # each spawn of ranks, and the CLI's process
+# The reference-checkpoint phase: full-width reference-format checkpoints
+# (weights from REF_SEED + i) converted in a child process, then the
+# notebook walkthrough on them at REF_POSES poses x REF_DESIGNS designs,
+# each re-docked at REF_SCREENS poses (the walkthrough's defaults are
+# 8 / 4 / 8: the poses are cut to 4 for time).
+REF_SEED = 41
+REF_POSES = 4
+REF_DESIGNS = 4
+REF_SCREENS = 8
+REF_ITERATION = 250000
+REF_CONVERT_S = 300       # the conversions' child process
 # H100 SXM peaks (NVIDIA data sheet): the bf16 dense tensor-core rate (the
 # kernels' inputs are bf16 on the timed paths) and the HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -855,13 +892,14 @@ def phase_attention(device):
     return res
 
 
-def _denoiser_check(model, batch, plain, reps=4, remove=(True, True)):
-    """One denoiser evaluation of the slice's model at full width, with the
-    encoder through the kernel and through the plain version (``plain``:
-    the keyword of ``DiffAb.prepare_denoiser`` that swaps the route's
-    kernel wrapper for its plain version): same weights, same inputs, the
-    context encoded with ``remove`` (remove_structure, remove_sequence).
-    Returns (max |d eps_pos|, max |d R_next|, max |d c|)."""
+def _denoiser_outputs(model, batch, routes, reps=4, remove=(True, True),
+                      beta=0.05):
+    """One denoiser evaluation of ``model`` for each of ``routes`` (keywords
+    of ``DiffAb.prepare_denoiser``: ``{}`` is the kernel route, and a plain
+    keyword swaps the route's kernel wrapper for its plain version): same
+    weights, same inputs (the native frames and positions at noise level
+    ``beta``), the context encoded with ``remove`` (remove_structure,
+    remove_sequence). Returns eps_net's outputs for each route."""
     import torch
     from ab_opt_tpu_torch.geometry import rotation_to_so3vec
     with torch.no_grad():
@@ -871,13 +909,21 @@ def _denoiser_check(model, batch, plain, reps=4, remove=(True, True)):
             res_feat, R0, p0, batch['generate_flag'], batch['mask'],
             batch['aa']))
         v, p = rotation_to_so3vec(R0), model.normalize_position(p0)
-        beta = torch.full((aa.shape[0],), 0.05, device=aa.device)
+        beta = torch.full((aa.shape[0],), beta, device=aa.device)
         outs = []
-        for kw in ({}, plain):
+        for kw in routes:
             enc, hw = model.prepare_denoiser(pair_feat, mres, reps, **kw)
             outs.append(model.eps_net(v, p, aa, res_feat, pair_feat, beta,
                                       gen, mres, reps=reps, encoder_fn=enc,
                                       head_weights=hw))
+    return outs
+
+
+def _denoiser_check(model, batch, plain, reps=4, remove=(True, True)):
+    """The denoiser of the slice's model at full width, through the kernel
+    and through the plain version (``plain``: see _denoiser_outputs).
+    Returns (max |d eps_pos|, max |d R_next|, max |d c|)."""
+    outs = _denoiser_outputs(model, batch, ({}, plain), reps, remove)
     d = lambda i: float((outs[0][i].float() - outs[1][i].float()).abs().max())
     return d(2), d(1), d(3)
 
@@ -2536,29 +2582,35 @@ def phase_optimize(device, smi):
     return launches['K1']
 
 
-def _gnn_cpu_check(model, single, reps, remove, device):
-    """One denoiser evaluation of the graph model on the card and of a copy
-    on the CPU (same weights, the same crop at fan-out ``reps``, the same
-    noisy state at t = T / 2): (max |d aa logits|, max |d z|)."""
-    import copy
-
+def _gnn_denoiser(model, single, reps, remove, device):
+    """One denoiser evaluation of the graph model on ``device`` (its crop
+    ``single`` at fan-out ``reps``, a noisy state at t = T / 2 drawn from
+    seed 0 on the CPU): (aa logits, z) on the CPU."""
     import torch
     from ab_opt_tpu_torch.data.collate import to_device_batch
     from ab_opt_tpu_torch.geometry import random_uniform_so3
+    b = to_device_batch(single, device)
+    with torch.no_grad():
+        prep = model._prepare(b, *remove).repeat(reps)
+        gen, v0, p0 = prep.gen, prep.v_0, prep.p_0
+        g = torch.Generator().manual_seed(0)
+        v = torch.where(gen[..., None], random_uniform_so3(
+            gen.shape, g).to(device), v0)
+        p = torch.where(gen[..., None], torch.randn(
+            p0.shape, generator=g).to(device), p0)
+        aa, z, _, _ = model._denoiser((v, p, model.cfg.num_steps // 2), prep)
+    return aa.float().cpu(), z.float().cpu()
+
+
+def _gnn_cpu_check(model, single, reps, remove, device):
+    """The graph model's denoiser on the card and a copy's on the CPU (same
+    weights, crop and state): (max |d aa logits|, max |d z|)."""
+    import copy
+
+    import torch
     cpu = torch.device('cpu')
-    outs = []
-    for m, dev in ((model, device), (copy.deepcopy(model).to(cpu), cpu)):
-        b = to_device_batch(single, dev)
-        with torch.no_grad():
-            prep = m._prepare(b, *remove).repeat(reps)
-            gen, v0, p0 = prep.gen, prep.v_0, prep.p_0
-            g = torch.Generator().manual_seed(0)
-            v = torch.where(gen[..., None], random_uniform_so3(
-                gen.shape, g).to(dev), v0)
-            p = torch.where(gen[..., None], torch.randn(
-                p0.shape, generator=g).to(dev), p0)
-            aa, z, _, _ = m._denoiser((v, p, m.cfg.num_steps // 2), prep)
-        outs.append((aa.float().cpu(), z.float().cpu()))
+    outs = [_gnn_denoiser(m, single, reps, remove, dev) for m, dev in (
+        (model, device), (copy.deepcopy(model).to(cpu), cpu))]
     return tuple(float((a - b).abs().max()) for a, b in zip(*outs))
 
 
@@ -3000,6 +3052,225 @@ def _dp_cli(device, smi):
         restore_log()
 
 
+class _Captured(Exception):
+    """Raised by phase 19's sampler stand-in once it holds a batch."""
+
+
+def _captured_batch(D, args):
+    """The first collated batch the design runner gives the sampler for
+    ``args`` (the request stops there): (model, batch, reps, remove)."""
+    got = []
+
+    def capture(self, batch, seed, num_replicas=1):
+        got.append((self.model, batch, num_replicas,
+                    (self.sample_structure, self.sample_sequence)))
+        raise _Captured
+    original = D.BatchedSampler.__call__
+    D.BatchedSampler.__call__ = capture
+    try:
+        D.design_for_pdb(args)
+    except _Captured:
+        pass
+    finally:
+        D.BatchedSampler.__call__ = original
+    return got[0]
+
+
+def phase_reference(device, smi):
+    """Released reference checkpoints and the notebook walkthrough (see the
+    module docstring, phase 19). Returns K1's launches in the
+    walkthrough."""
+    import importlib.util
+
+    import torch
+    from ab_opt_tpu_torch.data.collate import to_device_batch
+    from ab_opt_tpu_torch.examples import ab_opt_analysis as A
+    from ab_opt_tpu_torch.examples import ab_opt_pipeline as P
+    from ab_opt_tpu_torch.ops import gablock
+    from ab_opt_tpu_torch.ops import ipa_attention as ia
+    from ab_opt_tpu_torch.runners import design as D
+    from ab_opt_tpu_torch.runners import optimize as O
+    from ab_opt_tpu_torch.train.checkpoint import save_checkpoint
+    from ab_opt_tpu_torch.utils.bench_fixture import (
+        write_reference_checkpoint, write_synthetic_complex)
+    from ab_opt_tpu_torch.utils.config import load_config
+    t0 = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    root = DESIGN_OUT / 'reference'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    # Full-width reference-format files and port checkpoints of the same
+    # weights.
+    files, configs = {}, {}
+    for i, (name, yml) in enumerate((('dock', 'test/dock_cdr.yml'),
+                                     ('seq_design', 'test/seq_design.yml'),
+                                     ('gnn', 'train/aa_label.yml'))):
+        config = configs[name] = load_config(str(repo / 'configs' / yml))[0]
+        model = D.random_model(config['model'], REF_SEED + i)
+        files[name] = {k: str(root / f'{name}{suffix}') for k, suffix in (
+            ('ref', '_ref.pt'), ('port', '_port.ckpt'),
+            ('converted', '_converted.ckpt'))}
+        write_reference_checkpoint(files[name]['ref'], model, config,
+                                   iteration=REF_ITERATION)
+        save_checkpoint(files[name]['port'], config=config,
+                        model=model.state_dict(), iteration=REF_ITERATION)
+    # The converter, in a process that has never seen the easydict
+    # stand-in the files were written with.
+    code = (
+        'import sys, time\n'
+        'from ab_opt_tpu_torch.runners.convert_checkpoint import main\n'
+        'for src, dst in zip(sys.argv[1::2], sys.argv[2::2]):\n'
+        '    t = time.perf_counter()\n'
+        '    main([src, dst])\n'
+        '    print(f"convert: {time.perf_counter() - t:.3f} s")\n'
+        'bad = [k for k in sys.modules\n'
+        '       if k.split(".")[0] in ("easydict", "dynamic_yaml", "jax")]\n'
+        'assert not bad, bad\n')
+    argv = [p for f in files.values() for p in (f['ref'], f['converted'])]
+    t1 = time.perf_counter()
+    child = subprocess.run([sys.executable, '-c', code, *argv], cwd=repo,
+                           capture_output=True, text=True,
+                           timeout=REF_CONVERT_S)
+    convert_s = time.perf_counter() - t1
+    lines = [ln for ln in child.stdout.splitlines()
+             if ln.startswith(('converted', 'convert:'))]
+    for ln in lines:
+        print(f'reference: {ln}')
+    print(f'reference: 3 conversions in one child process, {convert_s:.3f} '
+          f's with its start-up (host)')
+    if child.returncode != 0 or len(lines) != 6:
+        print(child.stderr[-3000:])
+        raise SystemExit('the reference checkpoints did not convert')
+
+    # The walkthrough on the converted checkpoints, on the card by default.
+    pdb = write_synthetic_complex(str(root / 'cx.pdb'))
+    calls, sampled = [], {}
+    original, recording_call = _sampler_recorder(calls, sampled)
+    stage_s = {}
+    stages = ((P, 'design_for_pdb', 'stage 0 (poses)'),
+              (O, 'seq_design_batch', 'stage 1 (seq design)'),
+              (O, 'dock_seqs', 'stage 2 (re-dock)'))
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in stages]
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            n0 = len(calls)
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            stage_s[name] = (time.perf_counter() - t, calls[n0:])
+            return out
+        return run
+
+    out = root / 'walkthrough'
+    restore_log = _root_log_restorer()
+    saved_env = os.environ.pop('AB_OPT_FUSED_CHAIN', None)
+    try:
+        for owner, attr, name in stages:
+            setattr(owner, attr, timed(name, getattr(owner, attr)))
+        D.BatchedSampler.__call__ = recording_call
+        gablock.reset_counts()
+        ia.reset_counts()
+        t1 = time.perf_counter()
+        df = P.main(['--pdb', pdb, '--out', str(out),
+                     '--dock_ckpt', files['dock']['converted'],
+                     '--design_ckpt', files['seq_design']['converted'],
+                     '--num_poses', str(REF_POSES),
+                     '--num_designs', str(REF_DESIGNS),
+                     '--num_screens', str(REF_SCREENS)])
+        wall = time.perf_counter() - t1
+        launches = _route_counts()
+    finally:
+        D.BatchedSampler.__call__ = original
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+        restore_log()
+        if saved_env is not None:
+            os.environ['AB_OPT_FUSED_CHAIN'] = saved_env
+    diffusion = configs['dock']['model']['diffusion']
+    layers = diffusion['eps_net_opt']['num_layers']
+    steps = diffusion['num_steps']
+    n_cand = REF_POSES * REF_DESIGNS
+    for (name, (s, stage_calls)), n, reps in zip(
+            stage_s.items(), (1, REF_POSES, n_cand),
+            (REF_POSES, REF_DESIGNS, REF_SCREENS)):
+        _check_calls(f'reference walkthrough {name}', stage_calls, n, layers,
+                     steps, reps)
+        print(f'reference walkthrough {name}: wall {s:.3f} s, sampler calls '
+              f'{sum(c["s"] for c in stage_calls):.3f} s ({smi})')
+    n_calls = 1 + REF_POSES + n_cand
+    summary = out / 'screen' / 'screening_summary.csv'
+    ok = (len(df) == n_cand and _finite_csv(summary, n_cand)
+          and bool(df[['DockQ_avg', 'prmsd_avg']].notna().all().all())
+          and launches['K1'] == layers * steps * n_calls
+          and launches['K4'] == launches['K5'] == launches['plain'] == 0)
+    print(f'reference walkthrough ({REF_POSES} poses x {REF_DESIGNS} designs '
+          f'x {REF_SCREENS} re-docks, converted {layers}-layer, {steps}-step '
+          f'checkpoints): wall '
+          f'{wall:.3f} s; {len(calls)} sampler calls, K1 {layers * steps} a '
+          f'call, {launches["K1"]} in all, K4 {launches["K4"]}, K5 '
+          f'{launches["K5"]}, plain calls {launches["plain"]}; '
+          f'{len(df)} candidates, DockQ_avg '
+          f'{df["DockQ_avg"].round(4).tolist()}, prmsd_avg '
+          f'{df["prmsd_avg"].round(4).tolist()}; '
+          f'{"checks passed" if ok else "FAILED"} ({smi})')
+    if not ok:
+        raise SystemExit('the reference walkthrough failed its checks')
+    screen, seq = str(out / 'screen'), str(out / 'seq_design')
+    t1 = time.perf_counter()
+    if importlib.util.find_spec('matplotlib') is not None:
+        adf = A.main(['--screen_dir', screen, '--seq_design_dir', seq])
+    else:
+        A.summarize_seq_design(seq)
+        adf = A.collect_screening_df(screen)
+        print('reference analysis: matplotlib is absent, no plots drawn')
+    counts = A.aa_counts(adf['aa'])
+    print(f'reference analysis: {len(adf)} candidates, logo '
+          f'{counts.shape[0]} positions, {time.perf_counter() - t1:.3f} s '
+          f'(host)')
+    if not (len(adf) == n_cand and counts.sum() > 0):
+        raise SystemExit('the reference analysis failed its checks')
+
+    # Each stage's first call through K1 against its plain version, and
+    # the converted weights against a port checkpoint of the same weights.
+    _check_sampled('reference', sampled, device)
+    for model, single, reps, remove in sampled.values():
+        name = 'dock' if remove[0] else 'seq_design'
+        port = D.load_model_from_checkpoint(files[name]['port'])[0].to(device)
+        batch = to_device_batch(single, device)
+        beta = float(model.trans_pos.sched.betas[-1])
+        a, b = (_denoiser_outputs(m, batch, ({},), reps, remove, beta)[0]
+                for m in (model, port))
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        print(f'reference {name}: the denoiser at the first reverse step\'s '
+              f'noise level (beta_T {beta:.4f}, L={batch["aa"].shape[1]}, '
+              f'reps={reps}) through '
+              f'K1 from the converted file vs the port checkpoint: bitwise '
+              f'{same}')
+        if not same:
+            raise SystemExit(f'the converted {name} checkpoint disagrees '
+                             'with the port checkpoint')
+    gnn = {}
+    design_cfg = dict(load_config(str(repo / 'configs' / 'test' /
+                                      'codesign_single.yml'))[0])
+    for kind in ('converted', 'port'):
+        gnn[kind] = _captured_batch(D, D.DesignArgs(
+            pdb_path=pdb, ckpt=files['gnn'][kind], config=design_cfg,
+            num_samples=2, batch_size=2, seed=5,
+            out_root=str(root / f'gnn_{kind}')))
+    (gm, single, _, remove), (pm, _, _, _) = gnn['converted'], gnn['port']
+    a, b = (_gnn_denoiser(m, single, 2, remove, device) for m in (gm, pm))
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    print(f'reference gnn: the denoiser (t=T/2, L={single["aa"].shape[1]}, '
+          f'reps=2) on the card from the converted file vs the port '
+          f'checkpoint: bitwise {same}')
+    if not same:
+        raise SystemExit('the converted diff_gnn checkpoint disagrees with '
+                         'the port checkpoint')
+    print(f'phase 19: {time.perf_counter() - t0:.2f} s')
+    return launches['K1']
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3040,6 +3311,7 @@ def main():
     optimize_k1 = phase_optimize(device, smi.stdout.strip())
     phase_gnn(device, smi.stdout.strip())
     dp = phase_dp(device, smi.stdout.strip())
+    reference_k1 = phase_reference(device, smi.stdout.strip())
 
     kernels = [dict(
         name='gablock', route='cuda', source='ab_opt_tpu_torch/csrc/gablock.cu',
@@ -3047,7 +3319,8 @@ def main():
         max_abs_err=max_err, ms=times[256][0], plain_ms=times[256][1],
         bound_ms=bounds[256][0], bound_by=bounds[256][1], library_ms=None,
         train_cli_launches=cli['K1'], testset_launches=testset_k1,
-        optimize_launches=optimize_k1, dp_launches=dp['K1'])]
+        optimize_launches=optimize_k1, dp_launches=dp['K1'],
+        reference_launches=reference_k1)]
     for key, name, line, n in (('fwd', 'ipa_attention_fwd', 101, k2),
                                ('bwd', 'ipa_attention_bwd', 183, k3)):
         kernels.append(dict(

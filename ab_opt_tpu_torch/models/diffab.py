@@ -31,6 +31,7 @@ plain version for CPU tensors.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import os
 from typing import Any, Dict, Optional, Tuple
@@ -49,6 +50,7 @@ from ..ops.gablock import MAX_L as FUSED_MAX_L
 from ..ops.gablock import (build_encoder_weights, fused_encoder_chained,
                            gablock_layer, stack_encoder_weights)
 from ..ops.ipa_attention import ipa_attention_fwd_p2n
+from ..utils.profiling import span
 from . import losses as Ls
 from ._base import register_model
 from .losses import compute_prmsd, sequence_perplexity
@@ -66,6 +68,10 @@ IPA_IMPLS = ('auto', 'pallas_fused', 'pallas')
 # (ab_opt_tpu/ops/gablock_pallas.py::_vmem_estimate_bytes).
 
 logger = logging.getLogger(__name__)
+
+# The request id of a sampler call's spans: a count of this process's
+# DiffAb.sample and DiffAb.optimize calls.
+_REQUESTS = itertools.count()
 
 
 def encoder_route(ipa_impl: str, is_cuda: bool, L: int, chain: bool) -> str:
@@ -343,42 +349,45 @@ class DiffAb(DiffAbNet):
         'perplexity' (steps, N); with ``keep_traj`` also 'traj', the state
         after every step: 'v', 'p' (unnormalized), 's', each (steps, N, ...).
         """
-        draws = draws or {}
-        reps = num_replicas
-        mask_generate = batch['generate_flag']
-        mask_res = batch['mask']
-        res_feat, pair_feat, R_0, p_ctx = self.encode(
-            batch, sample_structure, sample_sequence)
         aa = batch['aa']
-        if reps > 1:
-            rep = lambda x: x.repeat_interleave(reps, dim=0)
-            res_feat, R_0, p_ctx, mask_generate, mask_res, aa = map(
-                rep, (res_feat, R_0, p_ctx, mask_generate, mask_res, aa))
-        v = rotation_to_so3vec(R_0)
-        p = self.normalize_position(p_ctx)
-        s = aa.long()
-        N, L = s.shape
-        dev = s.device
-        gen3 = mask_generate[..., None]
-        if sample_structure:
-            v_rand = random_uniform_so3((N, L), generator, dev,
-                                        normal=draws.get('init_quat'))
-            p_rand = draws.get('init_pos')
-            if p_rand is None:
-                p_rand = torch.randn(p.shape, generator=generator, device=dev)
-            v = torch.where(gen3, v_rand, v)
-            p = torch.where(gen3, p_rand, p)
-        if sample_sequence:
-            s_rand = draws.get('init_seq')
-            if s_rand is None:
-                s_rand = torch.randint(0, 19, s.shape, generator=generator,
-                                       device=dev)
-            s = torch.where(mask_generate, s_rand.long(), s)
+        with span('sample', request=next(_REQUESTS),
+                  N=aa.shape[0] * num_replicas, L=aa.shape[1]):
+            draws = draws or {}
+            reps = num_replicas
+            mask_generate = batch['generate_flag']
+            mask_res = batch['mask']
+            res_feat, pair_feat, R_0, p_ctx = self.encode(
+                batch, sample_structure, sample_sequence)
+            if reps > 1:
+                rep = lambda x: x.repeat_interleave(reps, dim=0)
+                res_feat, R_0, p_ctx, mask_generate, mask_res, aa = map(
+                    rep, (res_feat, R_0, p_ctx, mask_generate, mask_res, aa))
+            v = rotation_to_so3vec(R_0)
+            p = self.normalize_position(p_ctx)
+            s = aa.long()
+            N, L = s.shape
+            dev = s.device
+            gen3 = mask_generate[..., None]
+            if sample_structure:
+                v_rand = random_uniform_so3((N, L), generator, dev,
+                                            normal=draws.get('init_quat'))
+                p_rand = draws.get('init_pos')
+                if p_rand is None:
+                    p_rand = torch.randn(p.shape, generator=generator,
+                                         device=dev)
+                v = torch.where(gen3, v_rand, v)
+                p = torch.where(gen3, p_rand, p)
+            if sample_sequence:
+                s_rand = draws.get('init_seq')
+                if s_rand is None:
+                    s_rand = torch.randint(0, 19, s.shape,
+                                           generator=generator, device=dev)
+                s = torch.where(mask_generate, s_rand.long(), s)
 
-        return self._reverse_loop(
-            v, p, s, res_feat, pair_feat, mask_generate, mask_res,
-            self.cfg.num_steps, sample_structure, sample_sequence, reps,
-            generator, draws.get('steps'), stride, keep_traj)
+            return self._reverse_loop(
+                v, p, s, res_feat, pair_feat, mask_generate, mask_res,
+                self.cfg.num_steps, sample_structure, sample_sequence, reps,
+                generator, draws.get('steps'), stride, keep_traj)
 
     @torch.no_grad()
     def optimize(self, batch, opt_step: int,
@@ -395,32 +404,34 @@ class DiffAb(DiffAbNet):
         'pos' (N, L, 3), 'seq_gumbel' (N, L, 20), and 'steps' as in
         :meth:`sample`. Returns what :meth:`sample` returns.
         """
-        d = draws or {}
-        mask_generate, mask_res = batch['generate_flag'], batch['mask']
-        res_feat, pair_feat, R_0, p_ctx = self.encode(
-            batch, sample_structure, sample_sequence)
-        v = rotation_to_so3vec(R_0)
-        p = self.normalize_position(p_ctx)
-        s = batch['aa'].long()
-        t_vec = torch.full((s.shape[0],), opt_step, dtype=torch.long,
-                           device=s.device)
-        self.trans_rot.to(s.device)
-        if sample_structure:
-            v, _ = self.trans_rot.add_noise(
-                v, mask_generate, t_vec, axis=d.get('rot_axis'),
-                u=d.get('rot_u'), frac=d.get('rot_frac'),
-                gauss=d.get('rot_gauss'), generator=generator)
-            p, _ = self.trans_pos.add_noise(p, mask_generate, t_vec,
-                                            eps=d.get('pos'),
-                                            generator=generator)
-        if sample_sequence:
-            _, s = self.trans_seq.add_noise(s, mask_generate, t_vec,
-                                            gumbel=d.get('seq_gumbel'),
-                                            generator=generator)
-        return self._reverse_loop(
-            v, p, s, res_feat, pair_feat, mask_generate, mask_res, opt_step,
-            sample_structure, sample_sequence, 1, generator, d.get('steps'),
-            1, keep_traj)
+        with span('sample', request=next(_REQUESTS),
+                  N=batch['aa'].shape[0], L=batch['aa'].shape[1]):
+            d = draws or {}
+            mask_generate, mask_res = batch['generate_flag'], batch['mask']
+            res_feat, pair_feat, R_0, p_ctx = self.encode(
+                batch, sample_structure, sample_sequence)
+            v = rotation_to_so3vec(R_0)
+            p = self.normalize_position(p_ctx)
+            s = batch['aa'].long()
+            t_vec = torch.full((s.shape[0],), opt_step, dtype=torch.long,
+                               device=s.device)
+            self.trans_rot.to(s.device)
+            if sample_structure:
+                v, _ = self.trans_rot.add_noise(
+                    v, mask_generate, t_vec, axis=d.get('rot_axis'),
+                    u=d.get('rot_u'), frac=d.get('rot_frac'),
+                    gauss=d.get('rot_gauss'), generator=generator)
+                p, _ = self.trans_pos.add_noise(p, mask_generate, t_vec,
+                                                eps=d.get('pos'),
+                                                generator=generator)
+            if sample_sequence:
+                _, s = self.trans_seq.add_noise(s, mask_generate, t_vec,
+                                                gumbel=d.get('seq_gumbel'),
+                                                generator=generator)
+            return self._reverse_loop(
+                v, p, s, res_feat, pair_feat, mask_generate, mask_res,
+                opt_step, sample_structure, sample_sequence, 1, generator,
+                d.get('steps'), 1, keep_traj)
 
     def prepare_denoiser(self, pair_feat, mask_res, reps: int = 1,
                          layer=gablock_layer, attention=ipa_attention_fwd_p2n,
@@ -505,38 +516,43 @@ class DiffAb(DiffAbNet):
         ancestral step at t, as in the JAX package). ``denoiser`` is
         :meth:`prepare_denoiser`'s output; ``draws`` one step's entry of
         :meth:`sample`'s draws. Returns (v, p, s, prmsd, perplexity)."""
-        cfg = self.cfg
-        d = draws or {}
-        encoder_fn, head_weights = denoiser
-        beta = torch.full((s.shape[0],), float(self.trans_pos.sched.betas[t]),
-                          device=p.device)
-        v_next, _, p_pred, c_denoised, prmsd_logits = self.eps_net(
-            v, p, s, res_feat, pair_feat, beta, mask_generate, mask_res,
-            reps=reps, encoder_fn=encoder_fn, head_weights=head_weights)
-        if cfg.obj == 'pred_x0':
-            eps_p = self.trans_pos.pred_noise_from_start(p, p_pred,
-                                                         mask_generate, t)
-        else:
-            eps_p = p_pred
-        v_new = self.trans_rot.denoise(
-            v, v_next, mask_generate, t if t_next is None else t_next,
-            axis=d.get('rot_axis'), u=d.get('rot_u'), frac=d.get('rot_frac'),
-            gauss=d.get('rot_gauss'), generator=generator)
-        if t_next is None:
-            p_new = self.trans_pos.denoise(p, eps_p, mask_generate, t,
-                                           z=d.get('pos'), generator=generator)
-        else:
-            p_new = self.trans_pos.ddim_step(p, eps_p, mask_generate, t,
-                                             t_next)
-        post, s_new = self.trans_seq.denoise(
-            s, c_denoised, mask_generate, t, gumbel=d.get('seq_gumbel'),
-            generator=generator)
-        if sample_structure:
-            v, p = v_new, p_new
-        if sample_sequence:
-            s = s_new
-        return (v, p, s, compute_prmsd(prmsd_logits, cfg.dist_min, cfg.dist_max),
-                sequence_perplexity(post, mask_generate))
+        with span('sample.step', t=t):
+            cfg = self.cfg
+            d = draws or {}
+            encoder_fn, head_weights = denoiser
+            beta = torch.full((s.shape[0],),
+                              float(self.trans_pos.sched.betas[t]),
+                              device=p.device)
+            v_next, _, p_pred, c_denoised, prmsd_logits = self.eps_net(
+                v, p, s, res_feat, pair_feat, beta, mask_generate, mask_res,
+                reps=reps, encoder_fn=encoder_fn, head_weights=head_weights)
+            if cfg.obj == 'pred_x0':
+                eps_p = self.trans_pos.pred_noise_from_start(p, p_pred,
+                                                             mask_generate, t)
+            else:
+                eps_p = p_pred
+            v_new = self.trans_rot.denoise(
+                v, v_next, mask_generate, t if t_next is None else t_next,
+                axis=d.get('rot_axis'), u=d.get('rot_u'),
+                frac=d.get('rot_frac'), gauss=d.get('rot_gauss'),
+                generator=generator)
+            if t_next is None:
+                p_new = self.trans_pos.denoise(p, eps_p, mask_generate, t,
+                                               z=d.get('pos'),
+                                               generator=generator)
+            else:
+                p_new = self.trans_pos.ddim_step(p, eps_p, mask_generate, t,
+                                                 t_next)
+            post, s_new = self.trans_seq.denoise(
+                s, c_denoised, mask_generate, t, gumbel=d.get('seq_gumbel'),
+                generator=generator)
+            if sample_structure:
+                v, p = v_new, p_new
+            if sample_sequence:
+                s = s_new
+            return (v, p, s, compute_prmsd(prmsd_logits, cfg.dist_min,
+                                           cfg.dist_max),
+                    sequence_perplexity(post, mask_generate))
 
     def _reverse_loop(self, v, p, s, res_feat, pair_feat, mask_generate,
                       mask_res, t_start: int, sample_structure: bool,

@@ -13,6 +13,7 @@ from ..geometry import (planar_apply_to_vector, planar_compose,
                         planar_rotation_to_so3vec, planar_to_matrix,
                         quaternion_1ijk_to_rotation_planar,
                         so3vec_to_rotation_planar)
+from ..utils.profiling import span
 from .ipa import GAEncoder
 from .layers import Embedding, PerResiduePredictor, mlp
 
@@ -89,11 +90,13 @@ class EpsilonNet(nn.Module):
         seq_embed = self.current_sequence_embedding(s_t)
         res_feat = self.res_feat_mixer(
             torch.cat([res_feat.float(), seq_embed.float()], dim=-1))
-        if encoder_fn is not None:
-            res_feat = encoder_fn(R9, p_t, res_feat, mask_res)
-        else:
-            res_feat = self.encoder(R9, p_t, res_feat, pair_feat, mask_res,
-                                    reps=reps, attention=attention)
+        with span('denoiser.encoder'):
+            if encoder_fn is not None:
+                res_feat = encoder_fn(R9, p_t, res_feat, mask_res)
+            else:
+                res_feat = self.encoder(R9, p_t, res_feat, pair_feat,
+                                        mask_res, reps=reps,
+                                        attention=attention)
 
         t_embed = torch.stack([beta, torch.sin(beta), torch.cos(beta)], -1)
         in_feat = torch.cat([res_feat.float(),

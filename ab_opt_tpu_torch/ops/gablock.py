@@ -44,6 +44,7 @@ import math
 
 import torch
 
+from ..utils.profiling import span
 from . import build
 
 _SRC = build.CSRC_DIR / 'gablock.cu'
@@ -449,9 +450,10 @@ def gablock_layer(x, R9, t, z, bias, mask, wb, reps: int = 1):
     """
     if x.device.type == 'cpu':
         return gablock_layer_reference(x, R9, t, z, bias, mask, wb, reps)
-    _check_inputs(x, R9, t, z, bias, mask, wb, reps)
-    out = _launch_layer('gablock_forward', x, R9, t, z, bias, mask, wb, reps,
-                        attention_replicas(reps))
+    with span('k1.layer'):
+        _check_inputs(x, R9, t, z, bias, mask, wb, reps)
+        out = _launch_layer('gablock_forward', x, R9, t, z, bias, mask, wb,
+                            reps, attention_replicas(reps))
     gablock_layer.launches += 1
     return out
 

@@ -22,6 +22,7 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
 from .distributed import (Mesh, global_batch_sums, host_batch_slice,
                           take_rows, world_mesh)
 
@@ -174,11 +175,12 @@ def sharded_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             losses = model.loss(batch, **kw)
         total = weighted_total(losses, loss_weights)
         total.backward()
-        all_reduce_grads_(params, mesh)
-        if max_grad_norm is not None:
-            torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
-        optimizer.step()
-        return reduce_losses(dict(losses, overall=total), mesh)
+        with span('train.optimizer'):
+            all_reduce_grads_(params, mesh)
+            if max_grad_norm is not None:
+                torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
+            optimizer.step()
+            return reduce_losses(dict(losses, overall=total), mesh)
 
     return step
 

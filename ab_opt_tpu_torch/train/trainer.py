@@ -44,6 +44,7 @@ from ..parallel.distributed import (global_batch_sums,
 from ..parallel.mesh import (auto_mesh_for_batch, replicate,
                              sharded_train_step, weighted_total)
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .checkpoint import (load_checkpoint, read_weights, require_resumable,
                          save_checkpoint)
 
@@ -259,20 +260,22 @@ class Trainer:
         dict as device scalars. The finite check is one device flag,
         reduced over the ranks; with ``defer_nan_check`` the host reads it
         one step late, so it never waits for the step it just queued."""
-        dev_batch = to_device_batch(batch, self.device)
-        if t is None and draws is None:
-            t, draws = self.rank_draws(dev_batch, generator)
-        losses = self.step_fn(dev_batch, generator=self.loss_generator(
-            generator), t=t, draws=draws)
-        finite = losses.pop('_finite')
-        self._pending_checks.append((self.iteration, finite, batch, losses))
-        if defer_nan_check:
-            while len(self._pending_checks) > 1:
-                self._check_oldest()
-        else:
-            self.flush_nan_checks()
-        self.iteration += 1
-        return losses
+        with span('train.step', request=self.iteration):
+            dev_batch = to_device_batch(batch, self.device)
+            if t is None and draws is None:
+                t, draws = self.rank_draws(dev_batch, generator)
+            losses = self.step_fn(dev_batch, generator=self.loss_generator(
+                generator), t=t, draws=draws)
+            finite = losses.pop('_finite')
+            self._pending_checks.append((self.iteration, finite, batch,
+                                         losses))
+            if defer_nan_check:
+                while len(self._pending_checks) > 1:
+                    self._check_oldest()
+            else:
+                self.flush_nan_checks()
+            self.iteration += 1
+            return losses
 
     def _check_oldest(self):
         it, finite, batch, losses = self._pending_checks.popleft()

@@ -12,8 +12,9 @@ inputs (``nn/plddt.py``, ``nn/tensor_utils.py``, ``nn/inits.py``,
 * each initialiser's sample std on a 512 x 512 kernel within 2% of
   flax's (the zeros exactly), and the same generator seed gives the same
   weights;
-* ``StepTimer`` and ``seed_all`` as ``tests/test_aux.py`` tests JAX's, and
-  ``profile_trace`` writes a Chrome trace.
+* ``seed_all`` as ``tests/test_aux.py`` tests JAX's, and ``profile_trace``
+  writes a Chrome trace that carries the program's spans and leaves them
+  in the span record.
 """
 import json
 
@@ -28,7 +29,7 @@ from ab_opt_tpu import nn as JN  # noqa: E402
 from ab_opt_tpu.nn import tensor_utils as JT  # noqa: E402
 from ab_opt_tpu_torch import nn as TN  # noqa: E402
 from ab_opt_tpu_torch.nn import tensor_utils as TT  # noqa: E402
-from ab_opt_tpu_torch.utils import StepTimer, profile_trace, seed_all  # noqa: E402
+from ab_opt_tpu_torch.utils import profile_trace, recorded, seed_all, span  # noqa: E402
 
 tt = lambda a: torch.from_numpy(np.array(a))
 
@@ -141,17 +142,20 @@ def test_initialisers_match_flax(name):
 
 
 def test_step_timer_and_seed_all(tmp_path):
-    t = StepTimer(window=2)
-    for _ in range(3):
-        t.start()
-        t.stop(block_on={'x': torch.zeros(2)})
-    assert len(t.times) == 2
-    assert t.mean_ms >= 0
     seed_all(7)
     a = np.random.rand()
     seed_all(7)
     assert np.random.rand() == a
+    # A span of an earlier session: profile_trace clears the record.
+    with torch.profiler.profile():
+        with span('earlier'):
+            pass
     with profile_trace(str(tmp_path / 'prof')):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with span('sample.step', t=3):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     trace = json.load(open(tmp_path / 'prof' / 'trace.json'))
-    assert any('mm' in e.get('name', '') for e in trace['traceEvents'])
+    names = [e.get('name', '') for e in trace['traceEvents']]
+    assert any('mm' in n for n in names)
+    assert 'sample.step' in names
+    assert [(s.name, s.attrs) for s in recorded()] == [('sample.step',
+                                                        {'t': 3})]

@@ -30,6 +30,15 @@ def _mask_mix(mask, new, old):
     return torch.where(mask, new, old)
 
 
+def gumbel_noise(shape, generator=None, device=None):
+    """Standard Gumbel draws of ``shape``, from one uniform draw of
+    ``generator``."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=generator,
+                   device=device) * (1.0 - tiny) + tiny
+    return -torch.log(-torch.log(u))
+
+
 def clamped_one_hot(x, num_classes: int):
     """One-hot that maps out-of-range codes to the zero vector."""
     valid = (x >= 0) & (x < num_classes)
@@ -177,10 +186,7 @@ class SequenceTransition:
         ``gumbel`` is the standard Gumbel draw behind the sample (c's
         shape)."""
         if gumbel is None:
-            tiny = torch.finfo(torch.float32).tiny
-            u = torch.rand(c.shape, generator=generator,
-                           device=c.device) * (1.0 - tiny) + tiny
-            gumbel = -torch.log(-torch.log(u))
+            gumbel = gumbel_noise(c.shape, generator, c.device)
         return torch.argmax(torch.log(c + 1e-8) + gumbel, dim=-1)
 
     def add_noise(self, x_0, mask_generate, t, *, gumbel=None,

@@ -26,7 +26,8 @@ the eager GAEncoder in its sampling form, whose attention is
 :func:`ab_opt_tpu_torch.ops.ipa_attention.ipa_attention_fwd_p2n` (K4), as
 does ``'auto'`` on the card for a crop longer than K1 takes
 (:func:`encoder_route`). Each is the Hopper kernel for CUDA tensors, its
-plain version for CPU tensors.
+plain version for CPU tensors. On the card the K1 and K4 routes replay
+each reverse step as a CUDA graph (:mod:`.step_graph`).
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ import torch
 import torch.nn as nn
 
 from ..constants import BBHeavyAtom
-from ..diffusion import PositionTransition, RotationTransition, SequenceTransition
+from ..diffusion import (PositionTransition, RotationTransition,
+                         SequenceTransition, gumbel_noise)
 from ..geometry import (construct_3d_basis, random_uniform_so3,
                         rotation_to_so3vec, so3vec_to_rotation)
 from ..nn import EpsilonNet, PairEmbedding, ResidueEmbedding
@@ -54,6 +56,7 @@ from ..utils.profiling import span
 from . import losses as Ls
 from ._base import register_model
 from .losses import compute_prmsd, sequence_perplexity
+from .step_graph import GRAPH_ROUTES, ShapeGraphs, StepGraphs
 
 
 # The sampler's encoder routes: the per-layer GABlock kernel (K1), or the
@@ -208,6 +211,7 @@ class DiffAb(DiffAbNet):
         self.trans_rot = RotationTransition(cfg.num_steps)
         self.trans_pos = PositionTransition(cfg.num_steps)
         self.trans_seq = SequenceTransition(cfg.num_steps)
+        self.step_graphs = StepGraphs()
 
     def _position_affine(self, ref):
         as_t = lambda v: torch.tensor(v, dtype=torch.float32,
@@ -330,7 +334,7 @@ class DiffAb(DiffAbNet):
     def sample(self, batch, generator: Optional[torch.Generator] = None,
                sample_structure: bool = True, sample_sequence: bool = True,
                num_replicas: int = 1, draws: Optional[Dict] = None,
-               stride: int = 1, keep_traj: bool = False):
+               stride: int = 1, keep_traj: bool = False, graph: bool = True):
         """Full reverse-diffusion sampling with trajectory fan-out.
 
         Encoding runs once on ``batch``; ``num_replicas`` > 1 tiles the
@@ -348,6 +352,8 @@ class DiffAb(DiffAbNet):
         Returns final 'v', 'p' (unnormalized), 's' and per-step 'prmsd' and
         'perplexity' (steps, N); with ``keep_traj`` also 'traj', the state
         after every step: 'v', 'p' (unnormalized), 's', each (steps, N, ...).
+        ``graph=False`` runs every step eagerly on the card too (for a
+        side-by-side check of the CUDA graphs, see :meth:`_reverse_loop`).
         """
         aa = batch['aa']
         with span('sample', request=next(_REQUESTS),
@@ -387,13 +393,14 @@ class DiffAb(DiffAbNet):
             return self._reverse_loop(
                 v, p, s, res_feat, pair_feat, mask_generate, mask_res,
                 self.cfg.num_steps, sample_structure, sample_sequence, reps,
-                generator, draws.get('steps'), stride, keep_traj)
+                generator, draws.get('steps'), stride, keep_traj, graph)
 
     @torch.no_grad()
     def optimize(self, batch, opt_step: int,
                  generator: Optional[torch.Generator] = None,
                  sample_structure: bool = True, sample_sequence: bool = True,
-                 keep_traj: bool = False, draws: Optional[Dict] = None):
+                 keep_traj: bool = False, draws: Optional[Dict] = None,
+                 graph: bool = True):
         """Noise the native state to step ``opt_step`` (forward noising at
         t = opt_step for every complex), then denoise opt_step -> 0, one
         trajectory per row of ``batch`` (replicate the batch for more).
@@ -402,7 +409,8 @@ class DiffAb(DiffAbNet):
         keys (k_rot, k_pos, k_seq, then the loop): 'rot_axis' (N, L, 3),
         'rot_u', 'rot_frac', 'rot_gauss' (N, L) for the rotation noising,
         'pos' (N, L, 3), 'seq_gumbel' (N, L, 20), and 'steps' as in
-        :meth:`sample`. Returns what :meth:`sample` returns.
+        :meth:`sample`. Returns what :meth:`sample` returns; ``graph`` as
+        there.
         """
         with span('sample', request=next(_REQUESTS),
                   N=batch['aa'].shape[0], L=batch['aa'].shape[1]):
@@ -431,7 +439,7 @@ class DiffAb(DiffAbNet):
             return self._reverse_loop(
                 v, p, s, res_feat, pair_feat, mask_generate, mask_res,
                 opt_step, sample_structure, sample_sequence, 1, generator,
-                d.get('steps'), 1, keep_traj)
+                d.get('steps'), 1, keep_traj, graph)
 
     def prepare_denoiser(self, pair_feat, mask_res, reps: int = 1,
                          layer=gablock_layer, attention=ipa_attention_fwd_p2n,
@@ -454,9 +462,18 @@ class DiffAb(DiffAbNet):
         lie on a CUDA device or ``ipa_impl`` is ``'pallas_fused'``. The
         ``'auto'`` route on the CPU keeps the compute dtype (JAX's einsum
         off the accelerator). Head weights stay in the compute dtype."""
+        route, operands = self.denoiser_operands(pair_feat, mask_res, reps)
+        return self.denoiser_from(route, operands, reps, layer, attention,
+                                  chain)
+
+    def denoiser_operands(self, pair_feat, mask_res, reps: int = 1):
+        """``(route, operands)``: the encoder route (:func:`encoder_route`)
+        and the tensors :meth:`prepare_denoiser` closes over, in a dict:
+        'heads' (the stacked head weights), 'biases' and 'z', and for K1
+        'bundles' and 'mask_f', for K5 'stacked' and 'mask_f' (the biases
+        then stacked along a layer axis)."""
         dt = self.cfg.compute_dtype
         encoder = self.eps_net.encoder
-        head_weights = precompute_head_weights(self.eps_net, dt)
         num_layers = self.cfg.num_layers
         chain_env = os.environ.get('AB_OPT_FUSED_CHAIN', '0') != '0'
         route = encoder_route(self.cfg.ipa_impl, pair_feat.is_cuda,
@@ -465,112 +482,186 @@ class DiffAb(DiffAbNet):
         logger.info('encoder route %s (ipa_impl=%s, L=%d, %s, %s)', route,
                     self.cfg.ipa_impl, pair_feat.shape[1],
                     pair_feat.device.type, self.cfg.dtype)
+        ops = {'heads': precompute_head_weights(self.eps_net, dt)}
         if route == 'k4':
-            biases = precompute_encoder_pair_biases(encoder, pair_feat,
-                                                    mask_res[::reps], dt)
-            z = pair_feat.to(dt).contiguous()
+            ops['biases'] = precompute_encoder_pair_biases(
+                encoder, pair_feat, mask_res[::reps], dt)
+            ops['z'] = pair_feat.to(dt).contiguous()
+            return route, ops
+        kernel_route = pair_feat.is_cuda or self.cfg.ipa_impl == 'pallas_fused'
+        kdt = torch.bfloat16 if kernel_route else dt
+        biases = precompute_encoder_pair_biases(encoder, pair_feat,
+                                                mask_res[::reps], kdt)
+        ops['z'] = pair_feat.to(kdt).contiguous()
+        bundles = build_encoder_weights(encoder, kdt)
+        ops['mask_f'] = mask_res.float().contiguous()
+        if route == 'k5':
+            ops['stacked'] = stack_encoder_weights(bundles)
+            # (Nc, NL, H, L, L), bf16 on the kernel route.
+            ops['biases'] = torch.stack(biases, dim=1).contiguous()
+        else:
+            ops['bundles'], ops['biases'] = bundles, biases
+        return route, ops
+
+    def denoiser_from(self, route: str, ops: dict, reps: int = 1,
+                      layer=gablock_layer, attention=ipa_attention_fwd_p2n,
+                      chain=fused_encoder_chained):
+        """:meth:`prepare_denoiser`'s ``(encoder_fn, head_weights)`` over
+        the tensors of :meth:`denoiser_operands`."""
+        z, biases = ops['z'], ops['biases']
+        if route == 'k4':
+            encoder = self.eps_net.encoder
 
             def encoder_fn(R9, t, x, mask):
                 return encoder(R9, t, x, z, mask, reps=reps,
                                attention=attention, pair_biases=biases,
                                fuse_p2n=True)
-            return encoder_fn, head_weights
+            return encoder_fn, ops['heads']
 
-        kernel_route = pair_feat.is_cuda or self.cfg.ipa_impl == 'pallas_fused'
-        kdt = torch.bfloat16 if kernel_route else dt
-        biases = precompute_encoder_pair_biases(encoder, pair_feat,
-                                                mask_res[::reps], kdt)
-        z = pair_feat.to(kdt).contiguous()
-        bundles = build_encoder_weights(encoder, kdt)
-        mask_f = mask_res.float().contiguous()
+        mask_f = ops['mask_f']
         if route == 'k5':
-            stacked = stack_encoder_weights(bundles)
-            # (Nc, NL, H, L, L), bf16 on the kernel route.
-            bias_st = torch.stack(biases, dim=1).contiguous()
+            num_layers, stacked = self.cfg.num_layers, ops['stacked']
 
             def encoder_fn(R9, t, x, mask):
                 return chain(stacked, num_layers, R9.float().contiguous(),
                              t.float().contiguous(), x.float().contiguous(),
-                             z, bias_st, mask_f, reps)
+                             z, biases, mask_f, reps)
 
-            return encoder_fn, head_weights
+            return encoder_fn, ops['heads']
 
         def encoder_fn(R9, t, x, mask):
             x = x.float().contiguous()
             R9, t = R9.float().contiguous(), t.float().contiguous()
-            for wb, bias in zip(bundles, biases):
+            for wb, bias in zip(ops['bundles'], biases):
                 x = layer(x, R9, t, z, bias, mask_f, wb, reps)
             return x
 
-        return encoder_fn, head_weights
+        return encoder_fn, ops['heads']
+
+    def step_noise(self, shape, t: int, t_next: Optional[int] = None,
+                   draws: Optional[Dict] = None, generator=None,
+                   device=None) -> Dict[str, torch.Tensor]:
+        """Every noise draw of one reverse step on an (N, L) ``shape``
+        (:meth:`sample`'s keys of a step): those ``draws`` gives, and the
+        rest drawn from ``generator`` in the order and shapes
+        :meth:`reverse_step` draws them inline: the rotation's 'rot_axis',
+        'rot_u', 'rot_frac' and 'rot_gauss', the ancestral position step's
+        'pos' (none at t <= 1 or on a strided step), then 'seq_gumbel'."""
+        d = dict(draws or {})
+        N, L = shape
+
+        def fill(key, fn, *dims):
+            if d.get(key) is None:
+                d[key] = fn(dims, generator=generator, device=device)
+
+        fill('rot_axis', torch.randn, N, L, 3)
+        fill('rot_u', torch.rand, N, L)
+        fill('rot_frac', torch.rand, N, L)
+        fill('rot_gauss', torch.randn, N, L)
+        if t_next is None and t > 1:
+            fill('pos', torch.randn, N, L, 3)
+        fill('seq_gumbel', gumbel_noise, N, L, self.trans_seq.num_classes)
+        return d
 
     def reverse_step(self, v, p, s, t: int, res_feat, pair_feat,
                      mask_generate, mask_res, denoiser, reps: int = 1,
                      draws: Optional[Dict] = None, generator=None,
                      sample_structure: bool = True,
                      sample_sequence: bool = True,
-                     t_next: Optional[int] = None):
+                     t_next: Optional[int] = None,
+                     graphs: Optional[ShapeGraphs] = None):
         """One reverse step from state (v, p normalized, s) at level t:
         ancestral t -> t-1, or with ``t_next`` a strided jump t -> t_next
         (rotations re-noised at t_next, positions by DDIM, sequences by the
         ancestral step at t, as in the JAX package). ``denoiser`` is
         :meth:`prepare_denoiser`'s output; ``draws`` one step's entry of
-        :meth:`sample`'s draws. Returns (v, p, s, prmsd, perplexity)."""
-        with span('sample.step', t=t):
-            cfg = self.cfg
-            d = draws or {}
-            encoder_fn, head_weights = denoiser
-            beta = torch.full((s.shape[0],),
-                              float(self.trans_pos.sched.betas[t]),
-                              device=p.device)
-            v_next, _, p_pred, c_denoised, prmsd_logits = self.eps_net(
-                v, p, s, res_feat, pair_feat, beta, mask_generate, mask_res,
-                reps=reps, encoder_fn=encoder_fn, head_weights=head_weights)
-            if cfg.obj == 'pred_x0':
-                eps_p = self.trans_pos.pred_noise_from_start(p, p_pred,
-                                                             mask_generate, t)
-            else:
-                eps_p = p_pred
-            v_new = self.trans_rot.denoise(
-                v, v_next, mask_generate, t if t_next is None else t_next,
-                axis=d.get('rot_axis'), u=d.get('rot_u'),
-                frac=d.get('rot_frac'), gauss=d.get('rot_gauss'),
-                generator=generator)
-            if t_next is None:
-                p_new = self.trans_pos.denoise(p, eps_p, mask_generate, t,
-                                               z=d.get('pos'),
-                                               generator=generator)
-            else:
-                p_new = self.trans_pos.ddim_step(p, eps_p, mask_generate, t,
-                                                 t_next)
-            post, s_new = self.trans_seq.denoise(
-                s, c_denoised, mask_generate, t, gumbel=d.get('seq_gumbel'),
-                generator=generator)
-            if sample_structure:
-                v, p = v_new, p_new
-            if sample_sequence:
-                s = s_new
-            return (v, p, s, compute_prmsd(prmsd_logits, cfg.dist_min,
-                                           cfg.dist_max),
-                    sequence_perplexity(post, mask_generate))
+        :meth:`sample`'s draws. Returns (v, p, s, prmsd, perplexity).
+
+        ``graphs``, the request shape that :meth:`_reverse_loop` bound on
+        the card (:mod:`.step_graph`), holds this call's features, masks
+        and denoiser: the step then replays its CUDA graph (captured at the
+        level's first step), with the noise drawn ahead
+        (:meth:`step_noise`). The ``sample.step`` span's ``graph`` says
+        'capture', 'replay' or 'eager'."""
+        if graphs is not None:
+            with span('sample.step', t=t, graph=graphs.mode(t, t_next)):
+                noise = self.step_noise(s.shape, t, t_next, draws,
+                                        generator, s.device)
+                return graphs.step(self, v, p, s, t, t_next, noise)
+        with span('sample.step', t=t, graph='eager'):
+            return self.step_body(v, p, s, t, res_feat, mask_generate,
+                                  mask_res, denoiser, reps, draws, generator,
+                                  sample_structure, sample_sequence, t_next)
+
+    def step_body(self, v, p, s, t: int, res_feat, mask_generate, mask_res,
+                  denoiser, reps, draws, generator, sample_structure: bool,
+                  sample_sequence: bool, t_next: Optional[int]):
+        """:meth:`reverse_step`'s work, eager or under capture."""
+        cfg = self.cfg
+        d = draws or {}
+        encoder_fn, head_weights = denoiser
+        beta = torch.full((s.shape[0],),
+                          float(self.trans_pos.sched.betas[t]),
+                          device=p.device)
+        v_next, _, p_pred, c_denoised, prmsd_logits = self.eps_net(
+            v, p, s, res_feat, None, beta, mask_generate, mask_res,
+            reps=reps, encoder_fn=encoder_fn, head_weights=head_weights)
+        if cfg.obj == 'pred_x0':
+            eps_p = self.trans_pos.pred_noise_from_start(p, p_pred,
+                                                         mask_generate, t)
+        else:
+            eps_p = p_pred
+        v_new = self.trans_rot.denoise(
+            v, v_next, mask_generate, t if t_next is None else t_next,
+            axis=d.get('rot_axis'), u=d.get('rot_u'),
+            frac=d.get('rot_frac'), gauss=d.get('rot_gauss'),
+            generator=generator)
+        if t_next is None:
+            p_new = self.trans_pos.denoise(p, eps_p, mask_generate, t,
+                                           z=d.get('pos'),
+                                           generator=generator)
+        else:
+            p_new = self.trans_pos.ddim_step(p, eps_p, mask_generate, t,
+                                             t_next)
+        post, s_new = self.trans_seq.denoise(
+            s, c_denoised, mask_generate, t, gumbel=d.get('seq_gumbel'),
+            generator=generator)
+        if sample_structure:
+            v, p = v_new, p_new
+        if sample_sequence:
+            s = s_new
+        return (v, p, s, compute_prmsd(prmsd_logits, cfg.dist_min,
+                                       cfg.dist_max),
+                sequence_perplexity(post, mask_generate))
 
     def _reverse_loop(self, v, p, s, res_feat, pair_feat, mask_generate,
                       mask_res, t_start: int, sample_structure: bool,
                       sample_sequence: bool, reps: int, generator, step_draws,
-                      stride: int = 1, keep_traj: bool = False):
+                      stride: int = 1, keep_traj: bool = False,
+                      graph: bool = True):
         """t_start -> 0 reverse loop, positions normalized inside; returns
         :meth:`sample`'s dict. Steps t = t_start, t_start - stride, ... > 0,
         each to max(t - stride, 0); every step of a strided loop is a
-        strided step."""
-        denoiser = self.prepare_denoiser(pair_feat, mask_res, reps)
+        strided step. On the card each step replays a CUDA graph
+        (:mod:`.step_graph`) on the K1 and K4 routes, unless ``graph`` is
+        False; K5's launch carries an epoch the host counts up, which a
+        graph would freeze, so its route stays eager."""
+        route, operands = self.denoiser_operands(pair_feat, mask_res, reps)
+        denoiser = self.denoiser_from(route, operands, reps)
         self.trans_rot.to(p.device)
+        graphs = None
+        if graph and res_feat.is_cuda and route in GRAPH_ROUTES:
+            graphs = self.step_graphs.bind(
+                self, route, operands, res_feat, mask_generate, mask_res,
+                (v, p, s), reps, (sample_structure, sample_sequence))
         prmsd, ppl, traj = [], [], {'v': [], 'p': [], 's': []}
         for step, t in enumerate(range(t_start, 0, -stride)):
             t_next = None if stride == 1 else max(t - stride, 0)
             v, p, s, score, conf = self.reverse_step(
                 v, p, s, t, res_feat, pair_feat, mask_generate, mask_res,
                 denoiser, reps, step_draws[step] if step_draws else None,
-                generator, sample_structure, sample_sequence, t_next)
+                generator, sample_structure, sample_sequence, t_next,
+                graphs=graphs)
             prmsd.append(score)
             ppl.append(conf)
             if keep_traj:

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from ..diffusion.transitions import gumbel_noise
 from ..nn.layers import distance_to_bins_onehot
 from ..parallel.distributed import global_sum
 
@@ -103,9 +104,7 @@ def loss_draws(N: int, L: int, num_steps: int, generator=None, device='cpu',
     draws = {'rot_axis': n(N, L, 3), 'rot_u': u(N, L), 'rot_frac': u(N, L),
              'rot_gauss': n(N, L), 'pos': n(N, L, 3)}
     if sequence:
-        tiny = torch.finfo(torch.float32).tiny
-        draws['seq_gumbel'] = -torch.log(-torch.log(
-            u(N, L, 20) * (1.0 - tiny) + tiny))
+        draws['seq_gumbel'] = gumbel_noise((N, L, 20), generator, device)
     if mask_ratio is not None:
         lo, hi = mask_ratio
         ratio = lo + (hi - lo) * u()

@@ -8,8 +8,8 @@
   ``DiffAb.optimize`` a ``sample`` root of its own;
 * a tiny ``Trainer.train_step`` records ``train.step`` (its request the
   iteration) with ``train.optimizer`` inside it;
-* every record's start and end lie within 1 ms of its ``record_function``
-  event among the same session's kineto events.
+* every record lies inside its ``record_function`` event among the same
+  session's kineto events, up to 1 ms of clock slack.
 """
 import numpy as np
 import pytest
@@ -51,6 +51,10 @@ def _annotations(prof):
 
 
 def _assert_on_kineto_clock(prof, spans):
+    """Each record lies inside its own ``record_function`` event, up to
+    ``MS`` of clock slack: ``span`` takes its times after the event opens
+    and before it closes, and a record on another clock would lie far
+    outside. (How long a loaded host takes between the two is no bound.)"""
     events = _annotations(prof)
     by_name = {}
     for s in spans:
@@ -60,8 +64,8 @@ def _assert_on_kineto_clock(prof, spans):
         assert len(theirs) == len(mine), name
         for s, (start, end) in zip(sorted(mine, key=lambda s: s.start),
                                    theirs):
-            assert abs(s.start - start) < MS, (name, s.start - start)
-            assert abs(s.end - end) < MS, (name, s.end - end)
+            assert start - MS < s.start <= s.end < end + MS, (
+                name, s.start - start, end - s.end)
 
 
 def test_span_off_is_a_shared_no_op():

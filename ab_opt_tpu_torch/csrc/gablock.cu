@@ -224,6 +224,11 @@ struct LayerArgs {
 
 // ------------------------------------------------------- K1's launches
 
+// The query tiles of one replica at L: each replica's L rows take tiles of
+// their own, so the last holds L - (tiles - 1) * QT residues.
+template <class Plan>
+constexpr int attn_query_tiles(int L) { return (L + Plan::QT - 1) / Plan::QT; }
+
 // rt: the replicas an attention block serves (>= 1, dividing reps; the
 // wrapper passes the largest of 4, 2, 1 that divides reps, S4's v3 its own).
 template <class Plan, int ABL>
@@ -236,16 +241,20 @@ cudaError_t launch_attn(const bf16* qa, const bf16* ka, const bf16* vv, const bf
       (int)Plan::smem(L));
   if (err != cudaSuccess) return err;
   k1_attn_kernel<Plan, ABL>
-      <<<dim3((L + Plan::QT - 1) / Plan::QT, H, N / rt), Plan::QW * 32, Plan::smem(L), stream>>>(
+      <<<dim3(attn_query_tiles<Plan>(L), H, N / rt), Plan::QW * 32, Plan::smem(L), stream>>>(
           qa, ka, vv, bias, o, alpha, L, H, reps, rt);
   return cudaGetLastError();
 }
+
+// The attention plan K1 takes at L: AttnSmall up to 128 residues, else
+// AttnLarge (gablock_attention_plan reports it).
+inline bool k1_attn_small(int L) { return L <= 128; }
 
 template <int ABL = 0>
 cudaError_t launch_k1_attention(const bf16* qa, const bf16* ka, const bf16* vv,
                                 const bf16* bias, bf16* o, bf16* alpha, int N, int L, int H,
                                 int reps, int rt, cudaStream_t stream) {
-  if (L <= 128)
+  if (k1_attn_small(L))
     return launch_attn<AttnSmall, ABL>(qa, ka, vv, bias, o, alpha, N, L, H, reps, rt, stream);
   return launch_attn<AttnLarge, ABL>(qa, ka, vv, bias, o, alpha, N, L, H, reps, rt, stream);
 }
@@ -409,6 +418,19 @@ extern "C" int gablock_attention(const bf16* qa, const bf16* ka, const bf16* vv,
     return (int)cudaErrorInvalidValue;
   return (int)launch_k1_attention(qa, ka, vv, bias, o, alpha, N, L, H, reps, rt,
                                   reinterpret_cast<cudaStream_t>(stream_ptr));
+}
+
+// K1's attention plan at L, as launch_k1_attention launches it for a block
+// of rt replicas: returns the plan's query tile QT (the query rows a tile
+// computes at once) and writes the tiles one head of the block computes,
+// of which rt * L rows hold a residue.
+extern "C" int gablock_attention_plan(int L, int rt, int* tiles) {
+  if (k1_attn_small(L)) {
+    *tiles = rt * attn_query_tiles<AttnSmall>(L);
+    return AttnSmall::QT;
+  }
+  *tiles = rt * attn_query_tiles<AttnLarge>(L);
+  return AttnLarge::QT;
 }
 
 // K1's p2n launch alone: p2n (N, L, H, 64), the feature rows' p2n columns

@@ -49,7 +49,8 @@ from ..nn import EpsilonNet, PairEmbedding, ResidueEmbedding
 from ..nn.epsilon_net import precompute_head_weights
 from ..nn.ipa import precompute_encoder_pair_biases
 from ..ops.gablock import MAX_L as FUSED_MAX_L
-from ..ops.gablock import (build_encoder_weights, fused_encoder_chained,
+from ..ops.gablock import (attention_plan, attention_replicas,
+                           build_encoder_weights, fused_encoder_chained,
                            gablock_layer, stack_encoder_weights)
 from ..ops.ipa_attention import ipa_attention_fwd_p2n
 from ..utils.profiling import span
@@ -357,7 +358,9 @@ class DiffAb(DiffAbNet):
         """
         aa = batch['aa']
         with span('sample', request=next(_REQUESTS),
-                  N=aa.shape[0] * num_replicas, L=aa.shape[1]):
+                  N=aa.shape[0] * num_replicas, L=aa.shape[1],
+                  **self.sampler_plan(aa, num_replicas, sample_structure,
+                                      sample_sequence)):
             draws = draws or {}
             reps = num_replicas
             mask_generate = batch['generate_flag']
@@ -412,8 +415,10 @@ class DiffAb(DiffAbNet):
         :meth:`sample`. Returns what :meth:`sample` returns; ``graph`` as
         there.
         """
-        with span('sample', request=next(_REQUESTS),
-                  N=batch['aa'].shape[0], L=batch['aa'].shape[1]):
+        aa = batch['aa']
+        with span('sample', request=next(_REQUESTS), N=aa.shape[0],
+                  L=aa.shape[1], **self.sampler_plan(
+                      aa, 1, sample_structure, sample_sequence)):
             d = draws or {}
             mask_generate, mask_res = batch['generate_flag'], batch['mask']
             res_feat, pair_feat, R_0, p_ctx = self.encode(
@@ -440,6 +445,33 @@ class DiffAb(DiffAbNet):
                 v, p, s, res_feat, pair_feat, mask_generate, mask_res,
                 opt_step, sample_structure, sample_sequence, 1, generator,
                 d.get('steps'), 1, keep_traj, graph)
+
+    def sampler_route(self, is_cuda: bool, L: int) -> str:
+        """The sampler's encoder route (:func:`encoder_route`) for this
+        config at crop length ``L``, on the card or not."""
+        chain = os.environ.get('AB_OPT_FUSED_CHAIN', '0') != '0'
+        return encoder_route(self.cfg.ipa_impl, is_cuda, L,
+                             chain and self.cfg.num_layers > 1)
+
+    def sampler_plan(self, aa, reps: int, sample_structure: bool,
+                     sample_sequence: bool) -> dict:
+        """What a sampler call on the (complexes, L) tokens ``aa``, fanned
+        out ``reps`` times a complex, runs, as its ``sample`` span records
+        it: ``obj``, the flags (``structure``, ``sequence``), the encoder
+        route (``encoder``), ``reps`` and ``heads``, and where K1 runs on
+        the card the replicas one attention block serves (``k1_rt``) and
+        its attention plan (``ops.gablock.attention_plan``): the
+        query rows of a tile (``k1_attn_qt``) and those that hold a residue
+        (``k1_attn_rows``). The plain version on the CPU records no plan."""
+        L = aa.shape[1]
+        plan = {'obj': self.cfg.obj, 'structure': sample_structure,
+                'sequence': sample_sequence,
+                'encoder': self.sampler_route(aa.is_cuda, L), 'reps': reps,
+                'heads': self.eps_net.encoder.blocks[0].dims[0]}
+        if plan['encoder'] == 'k1' and aa.is_cuda:
+            plan['k1_rt'] = attention_replicas(reps)
+            plan['k1_attn_qt'], plan['k1_attn_rows'] = attention_plan(L, reps)
+        return plan
 
     def prepare_denoiser(self, pair_feat, mask_res, reps: int = 1,
                          layer=gablock_layer, attention=ipa_attention_fwd_p2n,
@@ -474,11 +506,7 @@ class DiffAb(DiffAbNet):
         then stacked along a layer axis)."""
         dt = self.cfg.compute_dtype
         encoder = self.eps_net.encoder
-        num_layers = self.cfg.num_layers
-        chain_env = os.environ.get('AB_OPT_FUSED_CHAIN', '0') != '0'
-        route = encoder_route(self.cfg.ipa_impl, pair_feat.is_cuda,
-                              pair_feat.shape[1],
-                              chain_env and num_layers > 1)
+        route = self.sampler_route(pair_feat.is_cuda, pair_feat.shape[1])
         logger.info('encoder route %s (ipa_impl=%s, L=%d, %s, %s)', route,
                     self.cfg.ipa_impl, pair_feat.shape[1],
                     pair_feat.device.type, self.cfg.dtype)

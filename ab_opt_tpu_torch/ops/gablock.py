@@ -153,6 +153,17 @@ def attention_replicas(reps: int) -> int:
     return next(rt for rt in (4, 2, 1) if reps % rt == 0)
 
 
+def attention_plan(L: int, reps: int) -> tuple:
+    """K1's attention plan for ``reps`` replicas of a complex at crop
+    length ``L``, as the library launches it (``gablock_attention_plan``):
+    (the query rows one tile computes at once, the rows of a tile that
+    hold a residue, averaged over the tiles of the launch)."""
+    rt = attention_replicas(reps)
+    tiles = ctypes.c_int()
+    qt = _library().gablock_attention_plan(L, rt, ctypes.byref(tiles))
+    return qt, rt * L / tiles.value
+
+
 def gablock_attention_reference(qa, ka, vv, bias, reps: int = 1):
     """K1's attention in plain PyTorch: qa, ka, vv (N, L, H*64) and bias
     (Nc, H, L, L) -> o (N, L, H*64) and alpha (Nc, L, reps*H, L), both in
@@ -359,6 +370,8 @@ def _library():
     lib.gablock_gemm.argtypes = ([P, I, P] + [I] * 3 + [P, I]
                                  + [P] * 5 + [P])
     lib.gablock_gemm.restype = I
+    lib.gablock_attention_plan.argtypes = [I, I, ctypes.POINTER(I)]
+    lib.gablock_attention_plan.restype = I
     lib.gablock_error_string.argtypes = [I]
     lib.gablock_error_string.restype = ctypes.c_char_p
     return lib

@@ -4,7 +4,8 @@ Counterpart of ``ab_opt_tpu/diffusion/igso3.py``: the same host-side numpy
 table build (truncated character series, 8192 bins, 1024 terms; Gaussian
 approximation for noise levels <= 0.1), and inverse-CDF sampling for one
 noise level shared by the whole batch (the sampler's scalar-t path) or one
-level per complex or residue (training's forward noising).
+level per complex or residue (training's forward noising, which reads the
+levels' rows from the tables' device copies).
 """
 from __future__ import annotations
 
@@ -14,12 +15,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.device import DeviceCopies
+
 
 class IGSO3Tables(NamedTuple):
     stddevs: np.ndarray        # (S,) float32
     approx_flag: np.ndarray    # (S,) bool: Gaussian approximation
     cdf: torch.Tensor          # (S, B-1) float32 inclusive CDF over bins
     dx: float                  # bin width = pi / (B - 1)
+    copies: DeviceCopies       # stddevs and approx_flag on t's devices
 
     def to(self, device) -> 'IGSO3Tables':
         return self._replace(cdf=self.cdf.to(device))
@@ -52,11 +56,12 @@ def build_igso3_tables(stddevs, std_threshold: float = 0.1,
         cdfs[series_rows] = np.cumsum(w, axis=1) / w.sum(axis=1, keepdims=True)
     gauss = stddevs <= std_threshold
     cdfs[gauss] = np.linspace(1.0 / (num_bins - 1), 1.0, num_bins - 1)
+    per_level = dict(stddevs=stddevs.astype(np.float32), approx_flag=gauss)
     return IGSO3Tables(
-        stddevs=stddevs.astype(np.float32),
-        approx_flag=stddevs <= std_threshold,
+        **per_level,
         cdf=torch.as_tensor(cdfs.astype(np.float32)),
         dx=math.pi / (num_bins - 1),
+        copies=DeviceCopies(per_level),
     )
 
 
@@ -89,11 +94,11 @@ def sample_igso3_angle(tables: IGSO3Tables, t, shape, *, u=None,
         rows, u.reshape(t.shape + (-1,)).contiguous()).reshape(shape)
     bin_idx = bin_idx.clamp_(max=rows.shape[-1] - 1)
     hist = (bin_idx.to(torch.float32) + frac) * tables.dx
-    per_elem = lambda a: torch.as_tensor(a, device=u.device)[t].reshape(
+    per_elem = lambda name: tables.copies(name, u.device)[t].reshape(
         t.shape + (1,) * (len(shape) - t.dim()))
-    std = per_elem(tables.stddevs)
+    std = per_elem('stddevs')
     approx = torch.fmod((gauss * std + std * 2.0).abs(), math.pi)
-    return torch.where(per_elem(tables.approx_flag), approx, hist)
+    return torch.where(per_elem('approx_flag'), approx, hist)
 
 
 def sample_igso3_vector(tables: IGSO3Tables, t, shape, *, axis=None,

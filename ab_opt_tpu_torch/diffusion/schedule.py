@@ -4,7 +4,8 @@
 Tables are built host-side in numpy float32, exactly as the JAX package
 builds them, and stay numpy: the sampler indexes them with a Python int t,
 so every coefficient is a float32 scalar computed on the host; training
-indexes them with a tensor t through :func:`broadcast_coef`.
+indexes them with a tensor t through :func:`broadcast_coef`, in the
+schedule's copies of them on t's device (``copies``, made once a device).
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.device import DeviceCopies
 
 
 class VarianceSchedule(NamedTuple):
@@ -24,6 +27,7 @@ class VarianceSchedule(NamedTuple):
     posterior_variance: np.ndarray
     posterior_mean_coef1: np.ndarray
     posterior_mean_coef2: np.ndarray
+    copies: DeviceCopies        # the tables above on the devices t lies on
 
     @property
     def num_steps(self) -> int:
@@ -56,7 +60,7 @@ class VarianceSchedule(NamedTuple):
                                     / denom)
 
         f32 = lambda x: np.asarray(x, np.float32)
-        return cls(
+        tables = dict(
             betas=f32(betas), alphas=f32(alphas), alpha_bars=f32(alpha_bars),
             sigmas=f32(sigmas),
             sqrt_recip_alpha_bars=f32(np.sqrt(1.0 / alpha_bars)),
@@ -65,14 +69,15 @@ class VarianceSchedule(NamedTuple):
             posterior_mean_coef1=f32(posterior_mean_coef1),
             posterior_mean_coef2=f32(posterior_mean_coef2),
         )
+        return cls(**tables, copies=DeviceCopies(tables))
 
 
-def broadcast_coef(table: np.ndarray, t: torch.Tensor,
+def broadcast_coef(sched: VarianceSchedule, name: str, t: torch.Tensor,
                    ref_ndim: int) -> torch.Tensor:
-    """``table[t]`` for a tensor ``t`` of shape (N,) or (N, L), as a float32
-    tensor on ``t``'s device with axes padded on the right to broadcast
-    against a tensor of ``ref_ndim`` dims."""
-    c = torch.as_tensor(table, device=t.device)[t.long()]
+    """``sched``'s table ``name`` at ``t``, a tensor of shape (N,) or (N,
+    L): a float32 tensor on ``t``'s device with axes padded on the right to
+    broadcast against a tensor of ``ref_ndim`` dims."""
+    c = sched.copies(name, t.device)[t.long()]
     while c.dim() < ref_ndim:
         c = c[..., None]
     return c

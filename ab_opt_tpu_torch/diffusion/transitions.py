@@ -53,7 +53,7 @@ class PositionTransition:
     def add_noise(self, p_0, mask_generate, t, *, eps=None, generator=None):
         """q(p_t | p_0), closed form, for a tensor ``t``: returns (p_noisy,
         eps); ``eps`` is the standard-normal draw (p_0's shape)."""
-        ab = broadcast_coef(self.sched.alpha_bars, t, p_0.dim())
+        ab = broadcast_coef(self.sched, 'alpha_bars', t, p_0.dim())
         if eps is None:
             eps = torch.randn(p_0.shape, generator=generator,
                               device=p_0.device)
@@ -116,8 +116,9 @@ class PositionTransition:
 
     def pred_start_from_noise(self, p_t, eps_p, mask_generate, t):
         """p_0 = p_t / sqrt(abar) - sqrt(1/abar - 1) eps, for a tensor t."""
-        cr = broadcast_coef(self.sched.sqrt_recip_alpha_bars, t, p_t.dim())
-        crm1 = broadcast_coef(self.sched.sqrt_recipm1_alpha_bars, t, p_t.dim())
+        n = p_t.dim()
+        cr = broadcast_coef(self.sched, 'sqrt_recip_alpha_bars', t, n)
+        crm1 = broadcast_coef(self.sched, 'sqrt_recipm1_alpha_bars', t, n)
         return _mask_mix(mask_generate, cr * p_t - crm1 * eps_p, p_t)
 
 
@@ -150,7 +151,7 @@ class RotationTransition:
         rotation composed with the scaled true rotation. Returns (v_noisy,
         e_scaled); draws as :func:`~.igso3.sample_igso3_vector`, each of
         v_0's shape but the last axis."""
-        ab = broadcast_coef(self.sched.alpha_bars, t, v_0.dim())
+        ab = broadcast_coef(self.sched, 'alpha_bars', t, v_0.dim())
         e_scaled = sample_igso3_vector(
             self.igso3_fwd, t, v_0.shape[:-1], axis=axis, u=u, frac=frac,
             gauss=gauss, generator=generator, device=v_0.device)
@@ -195,7 +196,7 @@ class SequenceTransition:
         probs, x_t codes)."""
         K = self.num_classes
         c_0 = clamped_one_hot(x_0, K)
-        ab = broadcast_coef(self.sched.alpha_bars, t, c_0.dim())
+        ab = broadcast_coef(self.sched, 'alpha_bars', t, c_0.dim())
         c_t = _mask_mix(mask_generate, ab * c_0 + (1.0 - ab) / K, c_0)
         return c_t, self._sample(c_t, gumbel, generator)
 
@@ -207,7 +208,7 @@ class SequenceTransition:
         c_t, c_0 = (x if x.dim() == 3 else clamped_one_hot(x, K)
                     for x in (x_t, x_0))
         if torch.is_tensor(t):
-            a = broadcast_coef(self.sched.alpha_bars, t, c_t.dim())
+            a = broadcast_coef(self.sched, 'alpha_bars', t, c_t.dim())
             off = (1.0 - a) / K
         else:
             a = self.sched.alpha_bars[t]

@@ -33,6 +33,7 @@ from ..geometry import (construct_3d_basis, local_to_global,
 from ..nn import PairEmbedding, ResidueEmbedding
 from ..nn.egnn import (NUM_AA_TYPES_OUT, DenseMCAttEGNN, DenseSeqGNN,
                        build_adjacency)
+from ..utils.device import DeviceCopies
 from . import losses as Ls
 from ._base import register_model
 
@@ -155,11 +156,21 @@ class DiffGNN(nn.Module):
                                   dropout=cfg.dropout, dtype=dt)
         self.trans_rot = RotationTransition(cfg.num_steps)
         self.trans_pos = PositionTransition(cfg.num_steps)
+        self.copies = DeviceCopies({
+            'position_mean': cfg.position_mean,
+            'position_scale': cfg.position_scale,
+            'ideal_bb': backbone_atom_coordinates[0]})
+
+    @property
+    def loss_draws_itself(self) -> bool:
+        """Whether :meth:`loss`, given ``t`` and ``draws``, still draws of
+        its own: its dropout masks, from the loss call's generator, while
+        the dropout rate is above 0."""
+        return self.cfg.dropout > 0
 
     def _affine(self, ref):
-        as_t = lambda v: torch.tensor(v, dtype=torch.float32,
-                                      device=ref.device)
-        return as_t(self.cfg.position_mean), as_t(self.cfg.position_scale)
+        as_t = lambda name: self.copies(name, ref.device, torch.float32)
+        return as_t('position_mean'), as_t('position_scale')
 
     def normalize_position(self, p):
         mean, scale = self._affine(p)
@@ -172,8 +183,7 @@ class DiffGNN(nn.Module):
     def _ideal_bb(self, ref):
         """The ideal ALA backbone (N, CA, C), normalised: (3, 3)."""
         _, scale = self._affine(ref)
-        return torch.as_tensor(backbone_atom_coordinates[0],
-                               dtype=torch.float32, device=ref.device) / scale
+        return self.copies('ideal_bb', ref.device, torch.float32) / scale
 
     # ------------------------------------------------------------------ common
 
@@ -257,7 +267,8 @@ class DiffGNN(nn.Module):
         noised_coord = self._noised_coord(prep.coord_n, p_t, v_t, gen)
         betas = self.trans_pos.sched.betas
         if torch.is_tensor(t):
-            condition = torch.as_tensor(betas, device=gen.device)[t.long()]
+            condition = self.trans_pos.sched.copies(
+                'betas', gen.device)[t.long()]
         else:
             condition = torch.full(gen.shape, float(betas[t]),
                                    device=gen.device)

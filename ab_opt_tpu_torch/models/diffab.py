@@ -53,6 +53,7 @@ from ..ops.gablock import (attention_plan, attention_replicas,
                            build_encoder_weights, fused_encoder_chained,
                            gablock_layer, stack_encoder_weights)
 from ..ops.ipa_attention import ipa_attention_fwd_p2n
+from ..utils.device import DeviceCopies
 from ..utils.profiling import span
 from . import losses as Ls
 from ._base import register_model
@@ -205,6 +206,10 @@ class DiffAb(DiffAbNet):
     sampling. ``cfg`` may also be a config dict's model section (read by
     :meth:`DiffAbConfig.from_dict`), as :func:`get_model` passes it."""
 
+    # Given ``t`` and ``draws`` (:meth:`loss_draws`), :meth:`loss` draws
+    # nothing of its own: the trainer may capture its step as a CUDA graph.
+    loss_draws_itself = False
+
     def __init__(self, cfg: DiffAbConfig):
         if isinstance(cfg, dict):
             cfg = DiffAbConfig.from_dict(cfg)
@@ -213,11 +218,13 @@ class DiffAb(DiffAbNet):
         self.trans_pos = PositionTransition(cfg.num_steps)
         self.trans_seq = SequenceTransition(cfg.num_steps)
         self.step_graphs = StepGraphs()
+        self.copies = DeviceCopies({'position_mean': cfg.position_mean,
+                                    'position_scale': cfg.position_scale})
 
     def _position_affine(self, ref):
-        as_t = lambda v: torch.tensor(v, dtype=torch.float32,
-                                      device=ref.device).reshape(1, 1, -1)
-        return as_t(self.cfg.position_mean), as_t(self.cfg.position_scale)
+        as_t = lambda name: self.copies(name, ref.device,
+                                        torch.float32).reshape(1, 1, -1)
+        return as_t('position_mean'), as_t('position_scale')
 
     def normalize_position(self, p):
         mean, scale = self._position_affine(p)
@@ -295,7 +302,7 @@ class DiffAb(DiffAbNet):
                 s_0, mask_generate, t, gumbel=d.get('seq_gumbel'),
                 generator=generator)
 
-        beta = torch.as_tensor(self.trans_pos.sched.betas, device=dev)[t]
+        beta = self.trans_pos.sched.copies('betas', dev)[t]
         _, R_pred, p_pred, c_denoised, prmsd_logits = self.eps_net(
             v_noisy, p_noisy, s_noisy, res_feat, pair_feat, beta,
             mask_generate, mask_res, attention=attention)

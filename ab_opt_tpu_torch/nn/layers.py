@@ -10,6 +10,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.device import DeviceCopies
+
 
 class Linear(nn.Linear):
     """``nn.Linear`` computing in ``dtype``; the output stays in ``dtype``."""
@@ -81,17 +83,15 @@ class AngularEncoding(nn.Module):
 
     def __init__(self, num_funcs: int = 3):
         super().__init__()
-        self.num_funcs = num_funcs
+        self.num_funcs = k = num_funcs
+        self.copies = DeviceCopies({'funcs': [i + 1.0 for i in range(k)]
+                                    + [1.0 / (i + 1) for i in range(k)]})
 
     def get_out_dim(self, in_dim: int) -> int:
         return in_dim * (1 + 2 * 2 * self.num_funcs)
 
     def forward(self, x):
-        k = self.num_funcs
-        funcs = torch.tensor([i + 1.0 for i in range(k)]
-                             + [1.0 / (i + 1) for i in range(k)],
-                             dtype=x.dtype, device=x.device)
-        y = x[..., None] * funcs
+        y = x[..., None] * self.copies('funcs', x.device, x.dtype)
         code = torch.cat([x[..., None], torch.sin(y), torch.cos(y)], dim=-1)
         return code.reshape(x.shape[:-1] + (-1,))
 

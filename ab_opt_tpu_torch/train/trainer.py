@@ -23,7 +23,12 @@ sampling eval while the others wait.
 The trainer runs on the CUDA card unless the caller asks for the CPU; the
 model's IPA attention then runs through the K2/K3 kernels, and the
 sampling-in-the-loop validation (:mod:`.sampling_eval`) through the
-sampler's encoder kernel (K1, or K4 past 256 residues).
+sampler's encoder kernel (K1, or K4 past 256 residues). On the card, on
+one rank, with a model whose loss draws nothing of its own given ``t`` and
+the draws (DiffAb; not the graph model while its dropout is on), each step
+replays a CUDA graph of the whole step, captured at a batch shape's second
+step (:mod:`.step_graph`); Adam is then capturable and reads its learning
+rate from a device tensor. Elsewhere the step is eager.
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ from ..utils.device import resolve_device
 from ..utils.profiling import span
 from .checkpoint import (load_checkpoint, read_weights, require_resumable,
                          save_checkpoint)
+from .step_graph import TrainGraphs, graphable
 
 logger = logging.getLogger(__name__)
 
@@ -129,11 +135,15 @@ class Trainer:
     ``n_devices``: the ranks to train over (the largest count up to it that
     divides the config's ``batch_size``; default every rank of the process
     group, one without a group). Each rank then passes its rows of the
-    global batch to :meth:`train_step`."""
+    global batch to :meth:`train_step`.
+
+    ``graph=False`` keeps every step eager where the step would replay a
+    CUDA graph (for a side-by-side check of the graphs; Adam keeps the
+    graphed route's capturable form)."""
 
     def __init__(self, model, train_cfg: Dict, log_dir: Optional[str] = None,
                  full_config: Optional[Dict] = None, device=None,
-                 n_devices: Optional[int] = None):
+                 n_devices: Optional[int] = None, graph: bool = True):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = dict(train_cfg)
@@ -156,9 +166,19 @@ class Trainer:
         self.loss_weights = dict(train_cfg.get('loss_weights', {}))
         self.max_grad_norm = float(train_cfg.get('max_grad_norm', 100.0))
         self.lr = float(opt_cfg.get('lr', 1e-4))
+        # On the graphed route the learning rate lives on the card, where
+        # a replayed Adam reads it; _set_lr writes it in place.
+        capturable = graphable(self.model, self.device, self.mesh)
+        self._lr_cell = (torch.tensor(self.lr, device=self.device)
+                         if capturable else None)
+        self._fit_optimizer_state()
+        self._set_lr(self.lr)
         self.step_fn = sharded_train_step(
             self.model, self.optimizer, self.mesh,
             loss_weights=self.loss_weights, max_grad_norm=self.max_grad_norm)
+        self.graphs = (TrainGraphs(self.step_fn, self.model, self.optimizer,
+                                   self.device)
+                       if capturable and graph else None)
         self.iteration = 0
         self._pending_checks = deque()
         # The global losses of every step this trainer took (key -> one
@@ -193,6 +213,7 @@ class Trainer:
             self.model.load_state_dict(saved['model'])
             if saved.get('optimizer') is not None:
                 self.optimizer.load_state_dict(saved['optimizer'])
+                self._fit_optimizer_state()
             self.iteration = int(saved.get('iteration', 0))
             self._set_lr(float(saved.get('extra', {}).get('lr', self.lr)))
         logger.info('Restored checkpoint %s at iteration %d', ckpt_path,
@@ -202,8 +223,24 @@ class Trainer:
 
     def _set_lr(self, lr: float):
         self.lr = lr
+        if self._lr_cell is not None:
+            self._lr_cell.fill_(lr)
         for group in self.optimizer.param_groups:
-            group['lr'] = lr
+            group['lr'] = lr if self._lr_cell is None else self._lr_cell
+
+    def _fit_optimizer_state(self):
+        """Adam in this trainer's form, when built and after a checkpoint
+        (which either route may have written): capturable with the step
+        counts on the card on the graphed route, plain with them on the
+        host otherwise; :meth:`_set_lr` then puts the learning rate in
+        (a device tensor or a float)."""
+        capturable = self._lr_cell is not None
+        for group in self.optimizer.param_groups:
+            group['capturable'] = capturable
+        home = self.device if capturable else torch.device('cpu')
+        for state in self.optimizer.state.values():
+            if 'step' in state:
+                state['step'] = state['step'].to(home, torch.float32)
 
     def _weighted_total(self, losses: Dict) -> torch.Tensor:
         return weighted_total(losses, self.loss_weights)
@@ -259,13 +296,23 @@ class Trainer:
         draws come from :meth:`loss_generator`. Returns the global loss
         dict as device scalars. The finite check is one device flag,
         reduced over the ranks; with ``defer_nan_check`` the host reads it
-        one step late, so it never waits for the step it just queued."""
-        with span('train.step', request=self.iteration):
+        one step late, so it never waits for the step it just queued.
+
+        On the graphed route (:mod:`.step_graph`) a step with its ``t`` and
+        draws replays the batch shape's graph; the ``train.step`` span's
+        ``graph`` says 'eager', 'capture' or 'replay'."""
+        with span('train.step', request=self.iteration) as tags:
             dev_batch = to_device_batch(batch, self.device)
             if t is None and draws is None:
                 t, draws = self.rank_draws(dev_batch, generator)
-            losses = self.step_fn(dev_batch, generator=self.loss_generator(
-                generator), t=t, draws=draws)
+            if self.graphs is not None and t is not None and draws is not None:
+                losses, mode = self.graphs.step(dev_batch, t, draws)
+            else:
+                losses, mode = self.step_fn(
+                    dev_batch, generator=self.loss_generator(generator),
+                    t=t, draws=draws), 'eager'
+            if tags is not None:
+                tags['graph'] = mode
             finite = losses.pop('_finite')
             self._pending_checks.append((self.iteration, finite, batch,
                                          losses))

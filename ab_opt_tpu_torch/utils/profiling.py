@@ -106,7 +106,7 @@ class _Recording:
         _RECORDS.append(Span(self.name, time.time_ns(), None, parent,
                              request, self.attrs))
         stack.append(self.index)
-        return self
+        return self.attrs
 
     def __exit__(self, *exc):
         _RECORDS[self.index].end = time.time_ns()
@@ -119,7 +119,10 @@ def span(name: str, **attrs):
     """A context manager marking a stretch of the program under ``name``
     (``attrs`` kept with the record; a root span's ``request`` is the
     request id of every span inside it). Records only while a
-    ``torch.profiler`` session is active; otherwise one shared no-op."""
+    ``torch.profiler`` session is active; otherwise one shared no-op.
+    Entered, it gives the attributes the record keeps (a dict the block may
+    add to, for what it learns while it runs), or None when it records
+    nothing."""
     if not torch.autograd._profiler_enabled():
         return _OFF
     return _Recording(name, attrs)

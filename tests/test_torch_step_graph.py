@@ -104,7 +104,7 @@ def test_cpu_binds_no_graph_and_copies_start_empty():
     assert len(model.step_graphs) == 0
     for k in ('v', 'p', 's', 'prmsd', 'perplexity'):
         assert torch.equal(out[k], eager[k]), k
-    model.step_graphs._shapes['shape'] = object()
+    model.step_graphs.get_or_make('shape', object)
     assert len(copy.deepcopy(model).step_graphs) == 0
     assert len(model.step_graphs) == 1
 

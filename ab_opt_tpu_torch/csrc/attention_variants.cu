@@ -336,46 +336,8 @@ int launch_s3_cz(const S3Plan& p, int Cz, const void* qa, const void* ka, const 
 }
 
 // -------------------------------------------------------------------- S2
-// mbarriers, TMA and the two wgmma forms S2 takes, in inline PTX.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Returns once the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-// A box of a 3-D tensor map (coordinates innermost first) into shared
-// memory; completion counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                          int x, int y, int zc) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(zc), "r"(smem_u32(bar))
-      : "memory");
-}
-
+// The two wgmma forms S2 takes, in inline PTX (its mbarriers and TMA are
+// k1_tiles.cuh's).
 template <int N>
 __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
@@ -675,44 +637,6 @@ s2_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
     fence_proxy_async();           // the staging writes before the next TMA into Qs
     mbar_arrive(&empty[s]);
   }
-}
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point (no
-// link against libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
-  }
-  return fn;
-}
-
-// A bf16 tensor of dims (d0 innermost, d1, d2), dense, cut in boxes of
-// (64, b1, 1) with the 128-byte swizzle; reads past an edge are zero.
-bool map3(EncodeTiled fn, CUtensorMap* m, const void* base, uint64_t d0, uint64_t d1,
-          uint64_t d2, uint32_t b1) {
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
-  const cuuint32_t box[3] = {64, b1, 1};
-  const cuuint32_t es[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
 }
 
 // ------------------------------------------------------------- host side

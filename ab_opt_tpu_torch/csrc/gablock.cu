@@ -33,15 +33,30 @@
 //   3. k1_attn_kernel (k1_attn_tile): one block per (query tile, head,
 //      group of rt replicas of one complex; rt the largest of 4, 2, 1 that
 //      divides reps). The tile's bias rows are staged in shared memory once
-//      (16-byte cp.async) and serve all rt replicas; each replica's K, V and
-//      Q tiles arrive by cp.async into a ring of two or three stages, the
-//      next replicas loading while the current one computes. Logits come
+//      and serve all rt replicas; each replica's K, V and Q tiles arrive in
+//      a ring of two or three stages, the next replicas loading while the
+//      current one computes. Logits come
 //      from mma.sync m16n8k16 and stay in registers (a whole key row, L <=
 //      256); + bias[n // reps], the exact max-subtract softmax in f32 with
 //      quad shuffles, alpha packed to bf16 pairs that are both the A operand
 //      of alpha . vvp and, through a 16-row staging tile, 16-byte stores of
 //      alpha in the (Nc, L, reps*H, L) layout p2n reads; o leaves the same
-//      way.
+//      way. Up to L=128 the plan is AttnSmall (8 warps, 128 query rows,
+//      three cp.async stages); past it AttnRing (k1_attn_tile_tma): 8
+//      warps and 128 query rows (two tiles a replica at L=256), two stages
+//      of K, V and Q filled by TMA (one thread issues, an mbarrier a stage
+//      counts the bytes) into 128-byte-swizzled rows of 64 bf16, the bias
+//      rows in swizzled 64-column blocks; 230,464 bytes of shared memory at
+//      L=256, one block and eight warps an SM, the next replica's loads in
+//      flight while the current one computes. Bytes bound it: at N = 256,
+//      L = 256, H = 12 qa, ka, vv, o, alpha and the bias are 807 MB, 241 us
+//      at 3.35 TB/s, against 46 us of tensor-core work; AttnRing takes
+//      414 us there, AttnLarge 1286 (H100 80GB HBM3, 700 W). At L=256 the
+//      launch takes an instance whose key count is a constant (FULL). K2,
+//      K4 and S1 keep AttnLarge (4 warps, 64 query rows, two cp.async
+//      stages) past L=128: their alpha layouts and K4's hook run on
+//      k1_attn_tile, and S3's alpha in shared memory has no room beside
+//      AttnRing's stages.
 //   4. k1_p2n_kernel (p2n_tile): per (complex, query row i): z[c, i] (L x
 //      Cz) is loaded once and multiplied by the alpha rows of ALL replicas
 //      and heads of that complex (M = reps * H), written straight into the
@@ -191,6 +206,18 @@ k1_proj_kernel(const float* __restrict__ X, const bf16* __restrict__ Bt, int M, 
   proj_tile(blockIdx.x * 128, t0, min(t0 + tiles_per_block, N / WN), X, Bt, M, N, ep, smraw);
 }
 
+// The same block on AttnRing (K1 past L=128): the operands through
+// their tensor maps (k1_attn_tile_tma); FULL when L == Plan::KMAX.
+template <class Plan, int ABL, bool FULL>
+__global__ void __launch_bounds__(Plan::QW * 32, 1)
+k1_attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tb,
+               bf16* __restrict__ o, bf16* __restrict__ alpha, int L, int H, int reps, int rt) {
+  extern __shared__ __align__(128) unsigned char smraw[];
+  k1_attn_tile_tma<Plan, ABL, FULL>(blockIdx.x * Plan::QT, blockIdx.y, blockIdx.z * rt, rt, &tq, &tk,
+                              &tv, &tb, o, alpha, L, H, reps, smraw);
+}
+
 // Block = 64 WG rows, WG warpgroups.
 template <int EPI, int WG>
 __global__ void __launch_bounds__(128 * WG)
@@ -236,9 +263,12 @@ cudaError_t launch_attn(const bf16* qa, const bf16* ka, const bf16* vv, const bf
                         bf16* o, bf16* alpha, int N, int L, int H, int reps, int rt,
                         cudaStream_t stream) {
   if (rt < 1 || reps % rt != 0) return cudaErrorInvalidValue;
+  // k1_attn_kernel is overloaded (AttnRing's takes tensor maps): the
+  // pointer's type names this form.
+  void (*kernel)(const bf16*, const bf16*, const bf16*, const bf16*, bf16*, bf16*, int, int,
+                 int, int) = k1_attn_kernel<Plan, ABL>;
   const cudaError_t err = cudaFuncSetAttribute(
-      k1_attn_kernel<Plan, ABL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Plan::smem(L));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Plan::smem(L));
   if (err != cudaSuccess) return err;
   k1_attn_kernel<Plan, ABL>
       <<<dim3(attn_query_tiles<Plan>(L), H, N / rt), Plan::QW * 32, Plan::smem(L), stream>>>(
@@ -246,8 +276,35 @@ cudaError_t launch_attn(const bf16* qa, const bf16* ka, const bf16* vv, const bf
   return cudaGetLastError();
 }
 
+// The same launch on AttnRing: qa, ka, vv and the bias as 3-D tensor
+// maps, encoded here each call (a CUDA graph keeps the captured ones).
+template <class Plan, int ABL>
+cudaError_t launch_attn_tma(const bf16* qa, const bf16* ka, const bf16* vv, const bf16* bias,
+                            bf16* o, bf16* alpha, int N, int L, int H, int reps, int rt,
+                            cudaStream_t stream) {
+  if (rt < 1 || reps % rt != 0) return cudaErrorInvalidValue;
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const uint64_t HD = (uint64_t)H * SLOT;
+  CUtensorMap m[4];
+  if (!map3(fn, &m[0], qa, HD, L, N, Plan::QT) || !map3(fn, &m[1], ka, HD, L, N, L) ||
+      !map3(fn, &m[2], vv, HD, L, N, L) ||
+      !map3(fn, &m[3], bias, L, L, (uint64_t)(N / reps) * H, Plan::QT))
+    return cudaErrorInvalidValue;
+  void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, bf16*, bf16*, int, int,
+                 int, int) = k1_attn_kernel<Plan, ABL, false>;
+  if (L == Plan::KMAX) kernel = k1_attn_kernel<Plan, ABL, true>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Plan::smem(L));
+  if (err != cudaSuccess) return err;
+  void* args[] = {&m[0], &m[1], &m[2], &m[3], &o, &alpha, &L, &H, &reps, &rt};
+  return cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
+                          dim3(attn_query_tiles<Plan>(L), H, N / rt), dim3(Plan::QW * 32), args,
+                          Plan::smem(L), stream);
+}
+
 // The attention plan K1 takes at L: AttnSmall up to 128 residues, else
-// AttnLarge (gablock_attention_plan reports it).
+// AttnRing (gablock_attention_plan reports it).
 inline bool k1_attn_small(int L) { return L <= 128; }
 
 template <int ABL = 0>
@@ -256,7 +313,7 @@ cudaError_t launch_k1_attention(const bf16* qa, const bf16* ka, const bf16* vv,
                                 int reps, int rt, cudaStream_t stream) {
   if (k1_attn_small(L))
     return launch_attn<AttnSmall, ABL>(qa, ka, vv, bias, o, alpha, N, L, H, reps, rt, stream);
-  return launch_attn<AttnLarge, ABL>(qa, ka, vv, bias, o, alpha, N, L, H, reps, rt, stream);
+  return launch_attn_tma<AttnRing, ABL>(qa, ka, vv, bias, o, alpha, N, L, H, reps, rt, stream);
 }
 
 // p2n into the feature rows (pitch ko): a block per (64 alpha rows, query
@@ -429,8 +486,8 @@ extern "C" int gablock_attention_plan(int L, int rt, int* tiles) {
     *tiles = rt * attn_query_tiles<AttnSmall>(L);
     return AttnSmall::QT;
   }
-  *tiles = rt * attn_query_tiles<AttnLarge>(L);
-  return AttnLarge::QT;
+  *tiles = rt * attn_query_tiles<AttnRing>(L);
+  return AttnRing::QT;
 }
 
 // K1's p2n launch alone: p2n (N, L, H, 64), the feature rows' p2n columns

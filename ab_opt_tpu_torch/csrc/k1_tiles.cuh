@@ -16,6 +16,10 @@
 //                     alpha . V in registers (P::QW warps); alpha out in K1's
 //                     layout, K2's, the block's shared memory or not at all
 //                     (A: AlphaOut), a per-warp hook H after each replica
+//   k1_attn_tile_tma<P>
+//                     the same tile for K1 past L=128 (AttnRing): K, V, Q
+//                     and the bias rows by TMA into 128-byte-swizzled tiles,
+//                     a two-stage ring on mbarriers, alpha in K1's layout
 //   p2n_tile<NTH>     16 NTH / 32 alpha rows of one (query row, complex)
 //                     times z[c, i] into the feature rows (NTH threads)
 //   p2n_stage/p2n_mma the same product on 128 alpha rows staged by cp.async
@@ -44,6 +48,7 @@
 // multiple of 4) and L (a multiple of 16, at most 256) are runtime values.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -84,8 +89,8 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // ------------------------------------------------------ Hopper primitives
-// cp.async (16 bytes, zero-filled when !full), ldmatrix, mma.sync and wgmma
-// in inline PTX.
+// cp.async (16 bytes, zero-filled when !full), ldmatrix, mma.sync, wgmma,
+// mbarriers and TMA in inline PTX.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -117,6 +122,45 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
 // to wgmma's operand reads (the async proxy) after the next barrier.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Returns once the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+// A box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; completion counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int x, int y, int zc) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(zc), "r"(smem_u32(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -156,6 +200,11 @@ __device__ __forceinline__ uint4 ld_shared_v4(const void* p) {
                : "r"(smem_u32(p))
                : "memory");
   return v;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
 }
 
 // wgmma operands: K-major tiles of 64 bf16 (128 bytes) a row, rows in
@@ -562,10 +611,13 @@ struct AttnPlan {
     return (size_t)QT * (L + 8) * 2 + NS * stage_elems(L) * 2;
   }
 };
-// K1: L <= 128: 8 warps, 128 query rows, three stages (200,704 bytes at
-// L=128: one block an SM). 128 < L <= 256: 4 warps, 64 query rows, two
-// stages (199,680 bytes at L=256). K5's blocks have 8 warps, so past L=128
-// it takes 128 query rows and one stage (159,744 bytes at L=256).
+// K1 up to L=128: 8 warps, 128 query rows, three stages (200,704 bytes at
+// L=128: one block an SM); past it AttnRing below. K5's blocks have 8
+// warps, so past L=128 it takes 128 query rows and one stage (AttnWide,
+// 159,744 bytes at L=256). K2, K4 and S1 past L=128 take AttnLarge: 4
+// warps, 64 query rows, two stages (199,680 bytes at L=256); K4's hook and
+// S1's K2-layout alpha run on k1_attn_tile's cp.async loads, and AttnRing
+// leaves no room for S3's alpha in shared memory.
 // S1 and K4 (csrc/attention_variants.cu, csrc/ipa_attention.cu) take
 // AttnLean up to L=128: 8 warps and one stage (90,112 bytes at L=128), so
 // two blocks share an SM and one's loads overlap the other's math; the same
@@ -577,8 +629,46 @@ using AttnLarge = AttnPlan<256, 4, 2>;
 using AttnWide = AttnPlan<256, 8, 1>;
 static_assert(AttnSmall::smem(128) <= 232448, "K1's attention plan exceeds sm_90 at L=128");
 static_assert(2 * (AttnLean::smem(128) + 1024) <= 233472, "two lean tiles must share an SM");
-static_assert(AttnLarge::smem(256) <= 232448, "K1's attention plan exceeds sm_90 at L=256");
+static_assert(AttnLarge::smem(256) <= 232448, "K2's attention plan exceeds sm_90 at L=256");
 static_assert(AttnWide::smem(256) <= 232448, "K5's attention plan exceeds sm_90 at L=256");
+
+// K1 past L=128 (k1_attn_tile_tma): 8 warps and 128 query rows, so eight
+// warps stay resident on the SM, and NS = 2 stages, so the next replica's
+// K, V and Q load while the current one computes (AttnLarge has the stages
+// and 4 warps, AttnWide the warps and one stage). Every tile is 64 bf16 (128
+// bytes) a row with the 128-byte swizzle, as TMA writes it, in place of the
+// padded rows (KLD, L + 8), which would not fit (251,904 bytes at L=256):
+// the bias rows as ceil(L / 64) column blocks of QT x 64, then the stages
+// [K (L x 64) | V (L x 64) | Q (QT x 64)], then the mbarriers; 1024 bytes
+// for the swizzle's alignment. At L=256: 65,536 + 2 x 81,920 + 1,088 =
+// 230,464 bytes, one block an SM. At N = 256, L = 256, H = 12 the launch
+// moves 807 MB (241 us at 3.35 TB/s) for 46 us of tensor-core work: bytes
+// bound it. Measured there (H100 80GB HBM3, 700 W, reps 256): AttnRing 414
+// us, AttnWide 711, AttnLarge 1286.
+struct AttnRing {
+  static constexpr int KMAX = 256, QW = 8, NS = 2, QT = 16 * QW;
+  __host__ __device__ static constexpr size_t bias_bytes(int L) {
+    return (size_t)QT * ((L + 63) / 64) * 128;
+  }
+  __host__ __device__ static constexpr size_t stage_bytes(int L) {
+    return (size_t)(2 * L + QT) * 128;
+  }
+  __host__ __device__ static constexpr size_t smem(int L) {
+    return 1024 + bias_bytes(L) + NS * stage_bytes(L) + 64;
+  }
+};
+static_assert(AttnRing::smem(256) <= 232448, "K1's attention plan exceeds sm_90 at L=256");
+
+// 16-byte unit a + b of row r of the 64-wide bf16 tile at p: rows KLD apart
+// (p + r KLD + 8 a + 8 b, the sum in the order the padded plans were
+// written in: another order compiles them to other code), or (SWZ) 64
+// apart with unit u at u ^ (r & 7), TMA's 128-byte swizzle (the tile
+// 1024-aligned; a warp's rows start at a multiple of 16).
+template <bool SWZ, class T>
+__device__ __forceinline__ T* t64(T* p, int r, int a, int b = 0) {
+  if constexpr (SWZ) return p + (r * SLOT + (((a + b) ^ (r & 7)) << 3));
+  else return p + r * KLD + a * 8 + b * 8;
+}
 
 // Where the tile's alpha goes: K1's (Nc, L, reps*H, L) layout (the rows
 // p2n reads), K2's (N, H, L, L) layout (S1's v1), nowhere (S1's v3: the
@@ -596,14 +686,21 @@ struct NoHook {
 
 // One warp's 16 query rows of one replica: logits, softmax, alpha (to arow,
 // rows a_ld apart, in device or shared memory; none without STORE_ALPHA),
-// o. ABL (S4), the bits of ABL_ATTN:
+// o. SWZ: the tiles in t64<true>'s swizzled rows and the bias rows in
+// 64-column blocks BLD elements apart, each a swizzled tile (AttnRing);
+// else rows KLD and BLD apart. FULL: L == KMAX, so the key
+// tiles' count is a constant and none is guarded at run time (AttnRing at
+// N = 256, L = 256: 414 us a launch against 608-624 with the guards, whose
+// branches keep the compiler from interleaving the tiles; H100 80GB HBM3,
+// 700 W). The same arithmetic in the same order either way. ABL (S4), the
+// bits of ABL_ATTN:
 //   fake_softmax  alpha = bf16(0.01 (logits + bias)) from the C fragments:
 //                 no max, exp or sum;
 //   fake_alpha    no Q . K (neither Q's fragments nor K's are read):
 //                 alpha = bf16(0.01 bias), from the staged bias rows;
 //   skip_values   no alpha . V: o = the replica's own vvp rows (row i of the
 //                 V stage for query row i), by the same 16-byte stores.
-template <int KMAX, bool STORE_ALPHA = true, int ABL = 0>
+template <int KMAX, bool STORE_ALPHA = true, int ABL = 0, bool SWZ = false, bool FULL = false>
 __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf16* Qw,
                                              const bf16* Bw, int BLD, int L, int i_first,
                                              bf16* __restrict__ orow, size_t o_ld,
@@ -613,13 +710,13 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
   constexpr bool kLinear = (ABL & (ABL_FAKE_ALPHA | ABL_FAKE_SOFTMAX)) != 0;
   constexpr bool kSkipValues = (ABL & ABL_SKIP_VALUES) != 0;
   const int g = lane >> 2, t = lane & 3;
-  const int nt = L >> 3;
+  const int nt = FULL ? KMAX / 8 : L >> 3;
 
   uint32_t qf[SLOT / 16][4];
   if constexpr (!kFakeAlpha) {
 #pragma unroll
     for (int kk = 0; kk < SLOT / 16; ++kk)
-      ldsm_x4(qf[kk], Qw + (lane & 15) * KLD + kk * 16 + (lane >> 4) * 8);
+      ldsm_x4(qf[kk], t64<SWZ>(Qw, lane & 15, 2 * kk, lane >> 4));
   }
 
   // Logits (16 x L) in mma C fragments: s[jt] holds rows g, g + 8 and the
@@ -629,10 +726,10 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
   for (int jt = 0; jt < KMAX / 8; ++jt) {
     s[jt][0] = s[jt][1] = s[jt][2] = s[jt][3] = 0.0f;
     if (!kFakeAlpha && jt < nt) {
-      const bf16* kr = Ks + (jt * 8 + (lane & 7)) * KLD + (lane >> 3) * 8;
+      const int kr = jt * 8 + (lane & 7);
       uint32_t k0[4], k1[4];     // channels 0-31, 32-63: b0, b1 of two k-steps each
-      ldsm_x4(k0, kr);
-      ldsm_x4(k1, kr + 32);
+      ldsm_x4(k0, t64<SWZ>(Ks, kr, lane >> 3));
+      ldsm_x4(k1, t64<SWZ>(Ks, kr, lane >> 3, 4));
       mma_bf16(s[jt], qf[0], k0[0], k0[1]);
       mma_bf16(s[jt], qf[1], k0[2], k0[3]);
       mma_bf16(s[jt], qf[2], k1[0], k1[1]);
@@ -642,15 +739,24 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
 
   // + bias, exact max-subtract softmax in f32 over the quad's registers
   // (masked keys carry -1e5 in the bias).
+  // Bias rows g + r8 (r8 0 or 8), key columns 8 jt + 2t, + 1.
   const bf16* b0 = Bw + g * BLD + 2 * t;
   const bf16* b1 = b0 + 8 * BLD;
+  auto keys = [&](int r8, int jt) -> const bf16* {
+    if constexpr (SWZ) {
+      const int c = jt * 8 + 2 * t, r = g + r8;
+      return Bw + ((c >> 6) * BLD + (r * SLOT + ((((c >> 3) & 7) ^ (r & 7)) << 3)) + (c & 7));
+    } else {
+      return (r8 ? b1 : b0) + jt * 8;
+    }
+  };
   uint32_t p[KMAX / 8][2];
   if constexpr (kLinear) {
 #pragma unroll
     for (int jt = 0; jt < KMAX / 8; ++jt) {
       if (jt < nt) {
-        const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b0 + jt * 8));
-        const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + jt * 8));
+        const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(keys(0, jt)));
+        const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(keys(8, jt)));
         p[jt][0] = pack2(0.01f * (s[jt][0] + u.x), 0.01f * (s[jt][1] + u.y));
         p[jt][1] = pack2(0.01f * (s[jt][2] + w.x), 0.01f * (s[jt][3] + w.y));
       } else {
@@ -662,8 +768,8 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
 #pragma unroll
     for (int jt = 0; jt < KMAX / 8; ++jt) {
       if (jt < nt) {
-        const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b0 + jt * 8));
-        const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + jt * 8));
+        const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(keys(0, jt)));
+        const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(keys(8, jt)));
         s[jt][0] += u.x;
         s[jt][1] += u.y;
         s[jt][2] += w.x;
@@ -710,8 +816,8 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         if (cb * 8 + jj < nt) {
-          st_shared_u32(Qw + g * KLD + jj * 8 + 2 * t, p[cb * 8 + jj][0]);
-          st_shared_u32(Qw + (g + 8) * KLD + jj * 8 + 2 * t, p[cb * 8 + jj][1]);
+          st_shared_u32(t64<SWZ>(Qw, g, jj) + 2 * t, p[cb * 8 + jj][0]);
+          st_shared_u32(t64<SWZ>(Qw, g + 8, jj) + 2 * t, p[cb * 8 + jj][1]);
         }
       }
       __syncwarp();
@@ -721,7 +827,7 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
         const int r = u >> 3, q = u & 7;
         if (q < units && i_first + r < L)
           *reinterpret_cast<uint4*>(arow + r * a_ld + cb * 64 + q * 8) =
-              ld_shared_v4(Qw + r * KLD + q * 8);
+              ld_shared_v4(t64<SWZ>(Qw, r, q));
       }
     }
   }
@@ -729,7 +835,7 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
   // o = alpha . vvp: the packed alpha registers are the A fragments.
   const bf16* ostage = Qw;
   if constexpr (kSkipValues) {
-    ostage = Vs + i_first * KLD;
+    ostage = t64<SWZ>(Vs, i_first, 0);
   } else {
     float oc[SLOT / 8][4];
 #pragma unroll
@@ -738,11 +844,11 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
     for (int kk = 0; kk < KMAX / 16; ++kk) {
       if (2 * kk < nt) {
         const uint32_t a[4] = {p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0], p[2 * kk + 1][1]};
-        const bf16* vr = Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * KLD + (lane >> 4) * 8;
+        const int vr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
         for (int d = 0; d < SLOT / 16; ++d) {
           uint32_t vb[4];
-          ldsm_x4_t(vb, vr + d * 16);
+          ldsm_x4_t(vb, t64<SWZ>(Vs, vr, lane >> 4, 2 * d));
           mma_bf16(oc[2 * d], a, vb[0], vb[1]);
           mma_bf16(oc[2 * d + 1], a, vb[2], vb[3]);
         }
@@ -751,8 +857,8 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
     __syncwarp();
 #pragma unroll
     for (int j = 0; j < SLOT / 8; ++j) {
-      st_shared_u32(Qw + g * KLD + j * 8 + 2 * t, pack2(oc[j][0], oc[j][1]));
-      st_shared_u32(Qw + (g + 8) * KLD + j * 8 + 2 * t, pack2(oc[j][2], oc[j][3]));
+      st_shared_u32(t64<SWZ>(Qw, g, j) + 2 * t, pack2(oc[j][0], oc[j][1]));
+      st_shared_u32(t64<SWZ>(Qw, g + 8, j) + 2 * t, pack2(oc[j][2], oc[j][3]));
     }
     __syncwarp();
   }
@@ -760,7 +866,7 @@ __device__ __forceinline__ void k1_attn_warp(const bf16* Ks, const bf16* Vs, bf1
   for (int u = lane; u < 128; u += 32) {
     const int r = u >> 3, q = u & 7;
     if (i_first + r < L)
-      *reinterpret_cast<uint4*>(orow + r * o_ld + q * 8) = ld_shared_v4(ostage + r * KLD + q * 8);
+      *reinterpret_cast<uint4*>(orow + r * o_ld + q * 8) = ld_shared_v4(t64<SWZ>(ostage, r, q));
   }
 }
 
@@ -853,6 +959,90 @@ __device__ __forceinline__ void k1_attn_tile(int i0, int h, int n0, int rt,
   }
 }
 
+// k1_attn_tile's tile (i0, h, n0 .. n0 + rt - 1), alpha in K1's layout, on
+// AttnRing's plan (Plan::QW * 32 threads): the operands through 3-D tensor
+// maps of qa, ka, vv (H*64, L, N; boxes 64 x QT for Q, 64 x L for K and V)
+// and of the bias (L, L, Nc*H; boxes 64 x QT), rows past L read as zero.
+// Thread 0 issues every load: the bias rows once, then replica r's K, V and
+// Q into stage r % NS, the stage's `full` mbarrier counting their bytes.
+// Each warp waits on `full` alone and computes its rows; once every thread
+// has arrived on the stage's `empty` mbarrier (after the proxy fence that
+// orders its staging writes into Q's rows before the TMA's), thread 0
+// refills the stage with replica r + NS. ABL and FULL (L == Plan::KMAX) as
+// k1_attn_warp takes them; under fake_alpha a stage loads only V.
+template <class Plan, int ABL, bool FULL>
+__device__ __forceinline__ void k1_attn_tile_tma(int i0, int h, int n0, int rt,
+                                                 const CUtensorMap* tq, const CUtensorMap* tk,
+                                                 const CUtensorMap* tv, const CUtensorMap* tb,
+                                                 bf16* __restrict__ o, bf16* __restrict__ alpha,
+                                                 int L, int H, int reps, unsigned char* smraw) {
+  constexpr int QT = Plan::QT, NS = Plan::NS, NTH = Plan::QW * 32;
+  constexpr bool kFakeAlpha = (ABL & ABL_FAKE_ALPHA) != 0;
+  unsigned char* sm = align1024(smraw);
+  bf16* Bs = reinterpret_cast<bf16*>(sm);
+  unsigned char* stage0 = sm + Plan::bias_bytes(L);
+  const size_t SB = Plan::stage_bytes(L);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage0 + NS * SB);
+  uint64_t* empty = full + NS;
+  uint64_t* bfull = empty + NS;
+  const int c = n0 / reps, HD = H * SLOT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t kv = (uint32_t)L * 128;    // bytes of K's (or V's) rows
+
+  auto load = [&](int r) {                  // thread 0
+    const int s = r % NS, n = n0 + r;
+    unsigned char* st = stage0 + s * SB;
+    mbar_expect_tx(&full[s], kFakeAlpha ? kv : (uint32_t)SB);
+    if (!kFakeAlpha) tma_load3(st, tk, &full[s], h * SLOT, 0, n);
+    tma_load3(st + kv, tv, &full[s], h * SLOT, 0, n);
+    if (!kFakeAlpha) tma_load3(st + 2 * kv, tq, &full[s], h * SLOT, i0, n);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NTH);
+    }
+    mbar_init(bfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bfull, (uint32_t)Plan::bias_bytes(L));
+    for (int cb = 0; cb < (L + 63) / 64; ++cb)
+      tma_load3(Bs + cb * QT * SLOT, tb, bfull, cb * 64, i0, c * H + h);
+    for (int r = 0; r < NS && r < rt; ++r) load(r);
+  }
+  __syncwarp();
+  mbar_wait(bfull, 0);
+
+  const size_t RH = (size_t)reps * H;
+  const int wrow = warp * 16, i_first = i0 + wrow;
+  for (int r = 0; r < rt; ++r) {
+    const int s = r % NS;
+    bf16* Ks = reinterpret_cast<bf16*>(stage0 + s * SB);
+    bf16* Vs = Ks + L * SLOT;
+    bf16* Qs = Vs + L * SLOT;
+    mbar_wait(&full[s], (r / NS) & 1);
+    __syncwarp();
+    if (i_first < L) {
+      const int n = n0 + r, rp = n - c * reps;
+      k1_attn_warp<Plan::KMAX, true, ABL, true, FULL>(
+          Ks, Vs, Qs + wrow * SLOT, Bs + wrow * SLOT, QT * SLOT, L, i_first,
+          o + ((size_t)n * L + i_first) * HD + h * SLOT, (size_t)HD,
+          alpha + (((size_t)c * L + i_first) * RH + (size_t)rp * H + h) * L, RH * L, lane);
+    }
+    if (r + NS < rt) {
+      fence_proxy_async();
+      mbar_arrive(&empty[s]);
+      if (tid == 0) {
+        mbar_wait(&empty[s], (r / NS) & 1);
+        load(r + NS);
+      }
+      __syncwarp();
+    }
+  }
+}
+
 // --------------------------------------------------------- K1's GEMMs
 // One tensor-core tile for the layer's five products: wgmma m64n128k16
 // (bf16 in, f32 accumulate) per warpgroup on 64 rows x 128 columns, the
@@ -885,11 +1075,6 @@ constexpr int WB_CHUNK = WN * WK * 2;  // bytes of one B chunk
 constexpr int WA_CHUNK = 64 * WK * 2;  // bytes of one warpgroup's A chunk
 constexpr int C_TILE = 64 * WN * 2;    // bytes of one warpgroup's bf16 staging tile
 constexpr int G_STAGES = 3;
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023u) & ~1023u) - a);
-}
 
 // rows x 64 of a row-major bf16 matrix (rows r0.., K from k0) into a
 // swizzled chunk; rows >= nrows and K past K (a multiple of 8) are zero.
@@ -1140,6 +1325,44 @@ inline size_t carve(unsigned char* base, int N, int L, int H, int pw, int ko,
     off += align_up(sizes[s]);
   }
   return off;
+}
+
+// cuTensorMapEncodeTiled through the CUDA runtime's entry-point query (no
+// link against libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// A bf16 tensor of dims (d0 innermost, d1, d2), dense, cut in boxes of
+// (64, b1, 1) with the 128-byte swizzle; reads past an edge are zero.
+inline bool map3(EncodeTiled fn, CUtensorMap* m, const void* base, uint64_t d0, uint64_t d1,
+          uint64_t d2, uint32_t b1) {
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {64, b1, 1};
+  const cuuint32_t es[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 // SMs of the current device, asked once per device.

@@ -27,8 +27,9 @@ from ab_opt_tpu_torch.utils.bench_fixture import encoder_case
                                        (144, 1, 3), (128, 1, 256)])
 def test_kernel_matches_plain_on_card(L, Nc, reps):
     """L below, between and at multiples of the attention's query tile (128
-    rows up to L=128, 64 past it), reps 1 to 256 (attention blocks of 1, 2
-    and 4 replicas), 5 padded rows; two launches are bitwise equal."""
+    rows; AttnSmall up to L=128, AttnRing past it), reps 1 to 256
+    (attention blocks of 1, 2 and 4 replicas), 5 padded rows; two launches
+    are bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
     dev = torch.device('cuda')
@@ -59,7 +60,7 @@ def test_kernel_matches_plain_on_card(L, Nc, reps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('L', [16, 48, 128, 256])
+@pytest.mark.parametrize('L', [16, 48, 128, 192, 256])
 @pytest.mark.parametrize('reps', [1, 3, 4, 256])
 def test_k1_attention_matches_plain_on_card(L, reps):
     """K1's attention launch alone against its plain version, bf16, H=12,
@@ -87,6 +88,33 @@ def test_k1_attention_matches_plain_on_card(L, reps):
                                atol=1e-3 * float(ref_a.float().abs().max()))
     torch.testing.assert_close(o.float(), ref_o.float(), rtol=1e-2,
                                atol=1e-2 * float(vv.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L', [144, 192, 256])
+@pytest.mark.parametrize('reps', [1, 3, 4, 256])
+def test_k1_attention_ring_is_attn_large_bitwise_on_card(L, reps):
+    """Past L=128 K1's attention runs AttnRing (8 warps, TMA into swizzled
+    tiles, two stages); S1 v1 runs the same warp arithmetic on AttnLarge
+    (4 warps, padded cp.async tiles, two stages). On the same operands, 5
+    padded key columns, o and alpha (S1's K2 layout put in K1's) are equal
+    bit for bit: a plan and a layout change no warp's sums."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernel has no CPU mode)')
+    from ab_opt_tpu_torch.ops import attention_variants as av
+    Nc = 2 if reps < 4 else 1
+    H = 12
+    qa, ka, vv, bias, _, _ = _attention_case(L, Nc, reps, torch.bfloat16,
+                                             torch.device('cuda'),
+                                             seed=L + reps)
+    with torch.no_grad():
+        o, alpha = gb.gablock_attention(qa, ka, vv, bias, reps)
+        large_o, large_a = av.attention_v1(qa, ka, vv, bias, reps)
+        torch.cuda.synchronize()
+    large_a = large_a.reshape(Nc, reps, H, L, L).permute(0, 3, 1, 2, 4)
+    assert torch.isfinite(o).all() and torch.isfinite(alpha).all()
+    assert torch.equal(o, large_o)
+    assert torch.equal(alpha, large_a.reshape(Nc, L, reps * H, L))
 
 
 @pytest.mark.cuda

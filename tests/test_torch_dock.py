@@ -287,7 +287,7 @@ def _plan(N, L, reps, qt, rows, H=12):
 
 
 DOCK = _plan(1000, 32, 1000, 128, 32.0)
-CODESIGN = _plan(256, 256, 256, 64, 64.0)
+CODESIGN = _plan(256, 256, 256, 128, 128.0)
 
 
 def _view(kernels=()):
@@ -449,14 +449,14 @@ def test_k1_matches_plain_at_dock_shape_on_card():
 @pytest.mark.cuda
 def test_attention_plan_on_card():
     """The library's attention plan is the kernel's (``k1_tiles.cuh``):
-    128-row tiles up to L=128, 64-row tiles past it, each replica's rows
-    in tiles of their own whatever the replicas a block serves; at the
-    docking cell's shape 32 of a tile's 128 rows hold a residue."""
+    128-row tiles at every L (AttnSmall up to L=128, AttnRing past it),
+    each replica's rows in tiles of their own whatever the replicas a
+    block serves; at the docking cell's shape 32 of a tile's 128 rows hold
+    a residue, at the fan-out cells' L=256 all of them."""
     _card()
     for L in range(16, gb.MAX_L + 1, 16):
-        qt = 128 if L <= 128 else 64
         for reps in (1, 2, 6, 1000):
             assert gb.attention_plan(L, reps) == (
-                qt, L / -(-L // qt)), (L, reps)
+                128, L / -(-L // 128)), (L, reps)
     assert gb.attention_plan(32, 1000) == (128, 32.0)
-    assert gb.attention_plan(256, 256) == (64, 64.0)
+    assert gb.attention_plan(256, 256) == (128, 128.0)
